@@ -1,28 +1,41 @@
-"""ALC3 chunk codec, dense path (PyTorch port of
-``alice_codec_tpu/alc3.py`` with ``sparse=False, rdo=False, deep=False,
-levels=1`` — the constructor's defaults).
+"""ALC3 chunk codec (PyTorch port of ``alice_codec_tpu/alc3.py`` with
+``rdo=False, deep=False, levels=1``): the dense path (the constructor's
+default) and sparse significance coding (``sparse=True``, the JAX
+package's north star).
 
-* encode: uint8 RGB → color → pad → fused lift + quantize kernel →
+* dense encode: uint8 RGB → color → pad → fused lift + quantize kernel →
   sampled histograms → frequency tables → word-rANS encode kernel.  The
   result (:class:`DeviceChunk`: padded segment streams, word counts,
   histograms) stays on the device.
-* decode: tables from the stored histograms → word-rANS decode kernel →
-  fused dequantize + inverse lift kernel → inverse color → uint8 RGB.
+* dense decode: tables from the stored histograms → word-rANS decode
+  kernel → fused dequantize + inverse lift kernel → inverse color → RGB.
+* sparse encode: the transform over the channels with nonzero colour
+  only; each plane then is elided (no nonzero symbol), coded dense (its
+  value rows reach ``DENSE_ROW_FRAC`` of the plane) or split by the
+  compact kernel into a significance bitmap and its nonzero values; the
+  sparse planes' bitmaps and every coded plane's values go through the
+  word-rANS encode kernel.  Sparse decode reverses it with the decode and
+  expand kernels.
 
 The container (:meth:`Alc3Codec.to_bytes` / :meth:`Alc3Codec.from_bytes`)
 is the JAX package's ALC3 wire, version 7, byte for byte::
 
     "ALC3" | version u8 (=7) | wavelet u8 | w u32 | h u32 | f u32
     n_chunks u32 | s_seg u32 | n_segments u32
-    per chunk: flags u8, then per plane (Y, Co, Cg):
-        ChannelHeader (1040 B) | n_segments × u32 segment word counts
+    per chunk: flags u8 (16: sparse), then per plane (dense: Y, Co, Cg;
+    sparse: the 3 bitmap planes, then the 3 value planes):
+        ChannelHeader (1040 B) | segment count × u32 segment word counts
     payload: per chunk/plane/segment, the meaningful u16 words (LE)
 
-The other ALC3 modes (sparse significance coding, AnalyticalRDO steps,
-deep 16-bit symbols — on by default at q=100 — and multi-level
-decomposition) are not ported yet: the codec and the container parser
-raise ``NotImplementedError`` for them instead of falling back to
-another mode.
+A sparse value plane's ``num_symbols`` is its capacity ``kcap``: 0 elides
+the plane (its bitmap section then has no segments either), the full
+dense capacity marks a dense plane (its bitmap segments ship elided).
+
+The other ALC3 modes (AnalyticalRDO steps, deep 16-bit symbols — on by
+default at q=100 — and multi-level decomposition) and ``encode_batch``
+are not ported yet: the codec and the container parser raise
+``NotImplementedError`` for them instead of falling back to another
+mode.
 """
 
 from __future__ import annotations
@@ -43,8 +56,16 @@ from .ops.kernels.rans3 import (
     encode_words,
     stream_rows,
 )
+from .ops.kernels.sparse import BLOCK_ROWS, DEFAULT_V_BLK, compact, expand
+from .ops.quant import build_histogram
 from .ops.tables_device import freq_table_device
-from .pipeline import ChannelHeader, decode_device, encode_device
+from .pipeline import (
+    ChannelHeader,
+    _hist_sample,
+    decode_device,
+    encode_device,
+    encode_sparse_phase1,
+)
 
 __all__ = ["DEFAULT_S_SEG", "HIST_STRIDE", "DeviceChunk", "Alc3Codec"]
 
@@ -62,7 +83,6 @@ _FLAG_DEEP = 2
 _FLAG_SPARSE = 16  # bits 2-3 hold the decomposition depth
 
 _UNPORTED = {
-    "sparse": "sparse significance coding (ROADMAP Queue 1 item 8)",
     "rdo": "AnalyticalRDO band steps (ROADMAP Queue 1 item 10)",
     "deep": "deep 16-bit symbols (ROADMAP Queue 1 item 10)",
     "levels": "multi-level decomposition (ROADMAP Queue 1 item 10)",
@@ -71,7 +91,8 @@ _UNPORTED = {
 
 def _unported(mode: str) -> NotImplementedError:
     return NotImplementedError(
-        f"the PyTorch port codes dense single-level ALC3 only; "
+        f"the PyTorch port codes single-level ALC3 without rdo or deep "
+        f"symbols only; "
         f"{_UNPORTED[mode]} is not ported yet")
 
 
@@ -122,6 +143,51 @@ def _covered_hist(hists: torch.Tensor, symbols: torch.Tensor) -> torch.Tensor:
     return torch.where(idx[None, :] <= mx[:, None], hists.clamp(min=1), hists)
 
 
+def _histograms(planes: torch.Tensor) -> torch.Tensor:
+    """(n, N) byte planes → (n, 256) int64 histograms."""
+    return torch.stack([build_histogram(row) for row in planes])
+
+
+def _sparse_pp(p: int) -> int:
+    """Plane symbols padded to a whole number of DEFAULT_V_BLK compaction
+    blocks (the sparse wire codes this padded plane; decoders strip it
+    back to ``p``)."""
+    blk = BLOCK_ROWS * NG * DEFAULT_V_BLK
+    return -(-p // blk) * blk
+
+
+#: Per-plane dense/sparse crossover, as a fraction of the plane's pixel
+#: rows (the JAX package's measured indifference point on its TPU; a
+#: wire-visible constant).  A plane whose value rows reach it is coded
+#: dense inside the sparse wire: its kcap is the full dense capacity, its
+#: value section is the raw symbol plane, and its bitmap ships elided.
+DENSE_ROW_FRAC = 0.05
+
+
+def _bucket_nv(need_rows: int, s_seg: int, max_nv: int | None = None) -> int:
+    """Value-plane segment count covering ``need_rows`` value rows: a
+    multiple of DEFAULT_V_SEG on a 3-bit mantissa grid, clamped to
+    ``max_nv`` (the dense plane's segment count); 0 for 0 rows (the
+    plane is elided)."""
+    if need_rows == 0:
+        return 0
+    nvu = max(DEFAULT_V_SEG, -(-need_rows // s_seg))
+    nvu = -(-nvu // DEFAULT_V_SEG) * DEFAULT_V_SEG
+    g = 1 << max((DEFAULT_V_SEG - 1).bit_length(), (nvu - 1).bit_length() - 3)
+    nvu = -(-nvu // g) * g
+    if max_nv is not None:
+        nvu = min(nvu, max_nv)
+    return nvu
+
+
+def _sampled_len(n: int, stride: int = HIST_STRIDE) -> int:
+    """Length of ``_hist_sample``'s output for an ``n``-symbol plane (the
+    all-zeros histogram of an elided plane's bitmap)."""
+    blk = stride * NG
+    nb = n // blk
+    return nb * NG if nb else n
+
+
 def _encode_chunk(rgb, step: int, dead_zone: int, *, wavelet_type, padded,
                   s_seg: int, v_seg: int):
     """Full dense encode: RGB (T, H, W, 3) uint8 → (streams, counts,
@@ -160,13 +226,169 @@ def _decode_chunk(streams, counts, hists, steps, *, wavelet_type, dims,
                          padded=padded, exact=exact)
 
 
+def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
+                         v_b: int, wire_active, dense=()):
+    """Sparse phase 2: compact kernel → bitmap + value planes → word-rANS
+    encode kernel.
+
+    ``symbols``: (npv, pp) uint8, the provided planes (wire planes
+    ``wire_active`` of the 3); ``krs``: per provided plane, its
+    value capacity in rows (``krs[i] · 128`` symbols, whole segments);
+    0 elides the plane.  ``dense``: provided planes coded dense — their
+    value section is the raw plane zero-padded to ``krs[i]`` rows (the
+    full dense capacity) and their all-ones bitmap is never coded.
+
+    Returns ``(streams, counts, hists)``: hists in the full wire layout
+    (6, 256) — bitmap rows, then value rows, with the rows of an
+    elided plane synthesized; streams and counts of the coded planes only:
+    their bitmap segments first (elided, count 0, for dense planes), then
+    each coded plane's value segments."""
+    npv = symbols.shape[0]
+    dev = symbols.device
+    coded = tuple(i for i in range(npv) if krs[i] > 0)
+    sp = tuple(c for c in coded if c not in dense)
+    values, bm_parts = {}, {}
+    if sp:
+        sym_sp, trows_sp = symbols, trows
+        if len(sp) < npv:
+            pick = torch.tensor(sp, device=dev)
+            sym_sp, trows_sp = symbols[pick], trows[pick]
+        bm, vals = compact(sym_sp, trows_sp, tuple(krs[c] for c in sp))
+        row = 0
+        for i, c in enumerate(sp):
+            values[c] = vals[row : row + krs[c]].reshape(-1)
+            bm_parts[c] = bm[i]
+            row += krs[c]
+    for c in dense:
+        values[c] = torch.nn.functional.pad(symbols[c], (0, krs[c] * NG - pp))
+        bm_parts[c] = torch.full((pp // 8,), 255, dtype=torch.uint8, device=dev)
+    zero_bm = torch.zeros((pp // 8,), dtype=torch.uint8, device=dev)
+    bitmaps = torch.stack([bm_parts.get(c, zero_bm) for c in range(npv)])
+    bm_hists = _covered_hist(_histograms(_hist_sample(bitmaps, HIST_STRIDE)),
+                             bitmaps)
+    # an elided plane's bitmap histogram is all mass at 0; its value plane
+    # has no symbols
+    zero_bm_hist = torch.zeros(256, dtype=torch.int64, device=dev)
+    zero_bm_hist[0] = _sampled_len(pp // 8)
+    zero_v_hist = torch.zeros(256, dtype=torch.int64, device=dev)
+    pos = {w: i for i, w in enumerate(wire_active)}
+    rows = [bm_hists[pos[w]] if w in pos else zero_bm_hist for w in range(3)]
+    for w in range(3):
+        i = pos.get(w)
+        if i in coded:
+            v = values[i][None, :]
+            rows.append(_covered_hist(
+                _histograms(_hist_sample(v, HIST_STRIDE)), v)[0])
+        else:
+            rows.append(zero_v_hist)
+    hists = torch.stack(rows)
+
+    streams, counts = [], []
+    nb, mb = _segment_geometry(pp // 8, s_seg, v_b)
+    if sp:
+        bm_sp = (bitmaps if len(sp) == npv
+                 else bitmaps[torch.tensor(sp, device=dev)])
+        bmh = hists[torch.tensor([wire_active[c] for c in sp], device=dev)]
+        freqs, cums = freq_table_device(
+            _table_hists(bmh, pp // 8, s_seg=s_seg, v_seg=v_b))
+        if mb != pp // 8:
+            bm_sp = torch.nn.functional.pad(bm_sp, (0, mb - pp // 8))
+        streams_sp, counts_sp = encode_words(
+            bm_sp.reshape(len(sp) * nb, s_seg, NG), freqs, cums)
+    for c in coded:
+        if c in sp:
+            j = sp.index(c)
+            streams.append(streams_sp[j * nb : (j + 1) * nb])
+            counts.append(counts_sp[j * nb : (j + 1) * nb])
+        else:  # a dense plane's bitmap segments ship elided
+            streams.append(torch.zeros((nb, stream_rows(s_seg), NG),
+                                       dtype=torch.int32, device=dev))
+            counts.append(torch.zeros(nb, dtype=torch.int32, device=dev))
+    # one launch per value plane: planes differ in capacity and table
+    for c in coded:
+        w = 3 + wire_active[c]
+        vf, vc = freq_table_device(hists[w : w + 1])
+        s_v, c_v = encode_words(
+            values[c].reshape(krs[c] // s_seg, s_seg, NG), vf, vc)
+        streams.append(s_v)
+        counts.append(c_v)
+    return torch.cat(streams), torch.cat(counts), hists
+
+
+def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
+                           kcaps, v_b: int) -> torch.Tensor:
+    """Sparse decode front half → (3, p) uint8 symbols.  ``kcaps``: per
+    plane, its value capacity in symbols — 0 elides the plane (exact
+    zeros), the full dense capacity marks a dense plane (its value
+    symbols are the plane; its bitmap is never read)."""
+    pp = _sparse_pp(p)
+    dev = streams.device
+    coded = tuple(c for c in range(3) if kcaps[c] > 0)
+    na = len(coded)
+    if na == 0:
+        return torch.zeros((3, p), dtype=torch.uint8, device=dev)
+    dense_kcap = _segment_geometry(pp, s_seg)[1]
+    dense = tuple(c for c in coded if kcaps[c] >= dense_kcap)
+    sp = tuple(c for c in coded if c not in dense)
+    nb, _ = _segment_geometry(pp // 8, s_seg, v_b)
+    planes = {}
+    if sp:
+        bmh = hists[torch.tensor(sp, device=dev)]
+        freqs, cums = freq_table_device(
+            _table_hists(bmh, pp // 8, s_seg=s_seg, v_seg=v_b))
+        # bitmap segments ride in coded order; take the sparse planes'
+        rows = torch.cat([torch.arange(coded.index(c) * nb,
+                                       (coded.index(c) + 1) * nb, device=dev)
+                          for c in sp])
+        bm = decode_words(streams[rows], counts[rows], freqs, cums,
+                          s_seg=s_seg).reshape(len(sp), -1)[:, : pp // 8]
+    parts = []
+    row0 = na * nb
+    for c in coded:
+        kr = kcaps[c] // NG
+        nv = kr // s_seg
+        vf, vc = freq_table_device(hists[3 + c : 4 + c])
+        v = decode_words(streams[row0 : row0 + nv], counts[row0 : row0 + nv],
+                         vf, vc, s_seg=s_seg).reshape(kr, NG)
+        row0 += nv
+        if c in dense:
+            planes[c] = v.reshape(-1)[:p]
+        else:
+            parts.append(v)
+    if sp:
+        sym_sp = expand(bm.contiguous(), torch.cat(parts),
+                        tuple(kcaps[c] // NG for c in sp))
+        for i, c in enumerate(sp):
+            planes[c] = sym_sp[i, :p]
+    zero = torch.zeros((p,), dtype=torch.uint8, device=dev)
+    return torch.stack([planes.get(c, zero) for c in range(3)])
+
+
+def _decode_chunk_sparse(streams, counts, hists, steps, *, wavelet_type,
+                         dims, padded, s_seg: int, kcaps, v_b: int,
+                         exact: bool = False):
+    """Full sparse decode: entropy decode + expand, then the inverse
+    transform over the coded planes only."""
+    p = padded[0] * padded[1] * padded[2]
+    symbols = _sparse_entropy_expand(streams, counts, hists, p=p, s_seg=s_seg,
+                                     kcaps=kcaps, v_b=v_b)
+    return decode_device(symbols, steps, wavelet_type=wavelet_type, dims=dims,
+                         padded=padded, exact=exact,
+                         active=tuple(c for c in range(3) if kcaps[c] > 0))
+
+
 @dataclass
 class DeviceChunk:
-    """A compressed chunk held in device memory (dense ALC3).
+    """A compressed chunk held in device memory.
 
-    ``streams``: (3·n_seg, stream_rows(s_seg), 128) int32 padded segment
-    word streams; ``counts``: (3·n_seg,) int32 meaningful words per
-    segment; ``hists``: (3, 256) int64 stored (sampled) histograms."""
+    Dense: ``streams`` (3·n_seg, stream_rows(s_seg), 128) int32 padded
+    segment word streams; ``counts`` (3·n_seg,) int32 meaningful words
+    per segment; ``hists`` (3, 256) int64 stored (sampled) histograms.
+
+    Sparse (``sparse=True``): the segments of the coded planes — their
+    bitmap segments, then each one's value segments; ``hists`` (6, 256),
+    the 3 bitmap planes' then the 3 value planes'; ``kcaps`` the 3 value
+    capacities in symbols (0: elided plane)."""
 
     width: int
     height: int
@@ -177,14 +399,17 @@ class DeviceChunk:
     streams: torch.Tensor
     counts: torch.Tensor
     hists: torch.Tensor
+    sparse: bool = False
+    kcaps: tuple[int, ...] = ()
 
     @property
     def n_planes(self) -> int:
-        return 3
+        return 6 if self.sparse else 3
 
     @property
     def n_segments(self) -> int:
-        """Segments per plane."""
+        """Segments per plane (meaningless for a sparse chunk, whose
+        planes differ in segment count)."""
         return self.streams.shape[0] // self.n_planes
 
     @property
@@ -194,9 +419,11 @@ class DeviceChunk:
 
     @classmethod
     def from_numpy(cls, *, width, height, frames, wavelet_type, quant_step,
-                   s_seg, streams, counts, hists, device=None) -> "DeviceChunk":
+                   s_seg, streams, counts, hists, sparse=False, kcaps=(),
+                   device=None) -> "DeviceChunk":
         """A chunk from the fields of a JAX ``DeviceChunk`` given as numpy
-        arrays (a dense, single-level chunk); tensors go to ``device``."""
+        arrays (a single-level chunk without rdo or deep symbols); tensors
+        go to ``device``."""
         dev = resolve_device(device)
         return cls(
             int(width), int(height), int(frames), WaveletType(int(wavelet_type)),
@@ -204,6 +431,7 @@ class DeviceChunk:
             torch.as_tensor(np.array(streams, np.int32), device=dev),
             torch.as_tensor(np.array(counts, np.int32), device=dev),
             torch.as_tensor(np.array(hists, np.int64), device=dev),
+            bool(sparse), tuple(int(k) for k in kcaps),
         )
 
     def to_numpy(self) -> dict:
@@ -217,12 +445,14 @@ class DeviceChunk:
             streams=self.streams.cpu().numpy().astype(np.int32),
             counts=self.counts.cpu().numpy().astype(np.int32),
             hists=self.hists.cpu().numpy().astype(np.uint32),
+            sparse=self.sparse, kcaps=tuple(self.kcaps),
         )
 
 
 class Alc3Codec:
-    """Dense ALC3 chunk codec on one device (CUDA unless ``device`` says
-    otherwise).
+    """ALC3 chunk codec on one device (CUDA unless ``device`` says
+    otherwise), dense or, with ``sparse=True``, with sparse significance
+    coding.
 
     >>> import numpy as np
     >>> rgb = np.zeros((2, 8, 8, 3), np.uint8)
@@ -251,11 +481,96 @@ class Alc3Codec:
             raise ValueError("rdo and deep modes are mutually exclusive")
         if rdo and int(levels) != 1:
             raise ValueError("rdo supports single-level decomposition only")
-        for mode, on in (("sparse", sparse), ("rdo", rdo), ("deep", deep),
+        for mode, on in (("rdo", rdo), ("deep", deep),
                          ("levels", int(levels) != 1)):
             if on:
                 raise _unported(mode)
+        self.sparse = bool(sparse)
         self.device = resolve_device(device)
+        # the sparse encoder's caches, keyed by chunk geometry — both are
+        # wire-visible, since they decide later chunks' capacities:
+        # value capacity rows per (wire planes, pp, s_seg), and the
+        # channels last found nonzero per (pp, s_seg)
+        self._krs_cache: dict = {}
+        self._active_cache: dict = {}
+
+    # ── sparse encode ───────────────────────────────────────────
+
+    def _settle_krs(self, rows, wire_active, pp: int):
+        """Value capacity rows of the provided planes ``wire_active``,
+        given their value rows ``rows``; stores them in the capacity cache.
+
+        The JAX package dispatches its phase 2 optimistically with the
+        cached capacities and re-dispatches with larger ones where the
+        rows overflow; this is the capacity its loop settles on, and the
+        cache write it makes: a cached bucket is kept while the rows fit,
+        else every plane takes the larger of it and its own bucket.  A
+        plane with no rows is elided (0), except the chunk's anchor
+        plane 0, which keeps the minimum bucket; a plane at or above
+        DENSE_ROW_FRAC of its rows is dense (the full capacity)."""
+        max_nv = _segment_geometry(pp, self.s_seg)[0]
+        dense_rows = max_nv * self.s_seg
+
+        def bucket(r: int, w: int) -> int:
+            if r == 0 and w == 0:
+                return DEFAULT_V_SEG * self.s_seg
+            if r >= DENSE_ROW_FRAC * (pp // NG):
+                return dense_rows
+            nv = _bucket_nv(r, self.s_seg, max_nv)
+            return dense_rows if nv >= max_nv else nv * self.s_seg
+
+        key = (tuple(wire_active), pp, self.s_seg)
+        krs = self._krs_cache.get(key)
+        if krs is None:
+            krs = tuple(bucket(r, w) for r, w in zip(rows, wire_active))
+        for _ in range(8):
+            if all(r <= k for r, k in zip(rows, krs)):
+                break
+            krs = tuple(max(k, bucket(r, w))
+                        for r, k, w in zip(rows, krs, wire_active))
+        self._krs_cache[key] = krs
+        return krs, dense_rows
+
+    def _encode_sparse(self, rgb, padded):
+        """Sparse encode of one chunk on the codec's device.
+
+        Phase 1 transforms only the channels the last chunk of this
+        geometry needed (all three at first); one host read of the value
+        rows and colour flags then picks the capacities.  Where a channel
+        assumed zero is not, phase 1 runs again over the needed channels,
+        and the capacities the JAX package's discarded dispatch stores for
+        the first set are stored too (a channel's symbols do not depend on
+        which others are active, so its first rows give them)."""
+        p = int(np.prod(padded))
+        pp = _sparse_pp(p)
+        akey = (pp, self.s_seg)
+        active = self._active_cache.get(akey, (0, 1, 2))
+
+        def phase1(chans):
+            sym, trows, flags = encode_sparse_phase1(
+                rgb, self.step, self.step, wavelet_type=self.wavelet_type,
+                padded=padded, pp=pp, active=chans)
+            host = torch.cat([trows.sum(-1, dtype=torch.int64),
+                              flags.to(torch.int64)]).tolist()
+            return sym, trows, host[: len(chans)], host[len(chans):]
+
+        symbols, trows, rows, flags = phase1(active)
+        needed = tuple(sorted({0} | {c for c in range(3) if flags[c]}))
+        if not set(needed) <= set(active):
+            self._settle_krs(rows, active, pp)
+            active = needed
+            symbols, trows, rows, _ = phase1(active)
+        self._active_cache[akey] = needed
+        krs, dense_rows = self._settle_krs(rows, active, pp)
+        nb, _ = _segment_geometry(pp // 8, self.s_seg)
+        streams, counts, hists = _encode_chunk_sparse(
+            symbols, trows, pp=pp, s_seg=self.s_seg, krs=krs, v_b=_pick_v_seg(nb),
+            wire_active=active,
+            dense=tuple(i for i, k in enumerate(krs) if k == dense_rows))
+        kcaps = [0, 0, 0]
+        for i, w in enumerate(active):
+            kcaps[w] = krs[i] * NG
+        return streams, counts, hists, tuple(kcaps)
 
     def encode(self, rgb) -> DeviceChunk:
         """Encode one (T, H, W, 3) uint8 chunk; accepts NumPy (uploaded
@@ -271,6 +586,11 @@ class Alc3Codec:
             raise InvalidBufferSize(4, rgb.ndim)
         t, h, w, _ = rgb.shape
         padded = padded_dims_levels(w, h, t, 1)
+        if self.sparse:
+            streams, counts, hists, kcaps = self._encode_sparse(rgb, padded)
+            return DeviceChunk(w, h, t, self.wavelet_type, self.step,
+                               self.s_seg, streams, counts, hists,
+                               sparse=True, kcaps=kcaps)
         n_seg, _ = _segment_geometry(int(np.prod(padded)), self.s_seg)
         streams, counts, hists = _encode_chunk(
             rgb, self.step, self.step, wavelet_type=self.wavelet_type,
@@ -285,11 +605,21 @@ class Alc3Codec:
         w, h, t = chunk.width, chunk.height, chunk.frames
         dev = chunk.streams.device
         steps = torch.full((3,), chunk.quant_step, dtype=torch.int32, device=dev)
+        padded = padded_dims_levels(w, h, t, 1)
+        if chunk.sparse:
+            pp = _sparse_pp(int(np.prod(padded)))
+            nb, _ = _segment_geometry(pp // 8, chunk.s_seg)
+            rgb = _decode_chunk_sparse(
+                chunk.streams, chunk.counts, chunk.hists, steps,
+                wavelet_type=chunk.wavelet_type, dims=(w, h, t),
+                padded=padded, s_seg=chunk.s_seg, kcaps=chunk.kcaps,
+                v_b=_pick_v_seg(nb), exact=exact)
+            return rgb.cpu().numpy() if as_numpy else rgb
         rgb = _decode_chunk(
             chunk.streams, chunk.counts, chunk.hists, steps,
-            wavelet_type=chunk.wavelet_type, dims=(w, h, t),
-            padded=padded_dims_levels(w, h, t, 1), s_seg=chunk.s_seg,
-            v_seg=_pick_v_seg(chunk.n_segments), exact=exact)
+            wavelet_type=chunk.wavelet_type, dims=(w, h, t), padded=padded,
+            s_seg=chunk.s_seg, v_seg=_pick_v_seg(chunk.n_segments),
+            exact=exact)
         return rgb.cpu().numpy() if as_numpy else rgb
 
     # ── container serialization (host interchange) ──────────────
@@ -315,22 +645,33 @@ class Alc3Codec:
             counts = ck.counts.cpu().numpy().astype(np.int64)
             streams = ck.streams.cpu().numpy()
             hists = ck.hists.cpu().numpy().astype(np.uint32)
-            buf.append(0)  # flags: dense, single level
-            n_seg = ck.n_segments
-            for ch in range(ck.n_planes):
-                row0 = ch * n_seg
+            buf.append(_FLAG_SPARSE if ck.sparse else 0)  # single level
+            # per plane: (segments, num_symbols).  Sparse: 3 bitmap planes
+            # of pp/8 symbols, then 3 value planes of kcap symbols; an
+            # elided plane (kcap 0) has no segments in either.
+            if ck.sparse:
+                pp = _sparse_pp(p)
+                nb, _ = _segment_geometry(pp // 8, ck.s_seg)
+                plane_geom = ([(nb, pp // 8) if k > 0 else (0, 0)
+                               for k in ck.kcaps]
+                              + [(k // (ck.s_seg * NG), k) for k in ck.kcaps])
+            else:
+                plane_geom = [(ck.n_segments, p)] * ck.n_planes
+            row0 = 0
+            for ch, (n_seg, nsym) in enumerate(plane_geom):
                 ch_counts = counts[row0 : row0 + n_seg]
                 buf += ChannelHeader(
                     compressed_len=int(ch_counts.sum()) * 2,
                     quant_step=ck.quant_step,
                     quant_dead_zone=ck.quant_step,
-                    num_symbols=p,
+                    num_symbols=int(nsym),
                     histogram=hists[ch],
                 ).to_bytes()
                 buf += ch_counts.astype("<u4").tobytes()
                 for s in range(n_seg):
                     words = streams[row0 + s].reshape(-1)[: ch_counts[s]]
                     payload += words.astype("<u2").tobytes()
+                row0 += n_seg
         return bytes(buf) + bytes(payload)
 
     @classmethod
@@ -357,7 +698,8 @@ class Alc3Codec:
         w_rows = stream_rows(s_seg)
 
         off = 30
-        metas = []  # per chunk: (step, hists, counts per plane)
+        metas = []  # per chunk: (step, hists, counts per plane, sparse, kcaps)
+        seg = s_seg * NG
         for _ in range(n_chunks):
             if off + 1 > len(data):
                 raise InvalidBitstream("truncated ALC3 chunk flags")
@@ -365,24 +707,68 @@ class Alc3Codec:
             off += 1
             if flags & _FLAG_RDO and flags & _FLAG_DEEP:
                 raise InvalidBitstream("rdo and deep flags are exclusive")
-            for mode, bit in (("sparse", _FLAG_SPARSE), ("rdo", _FLAG_RDO),
-                              ("deep", _FLAG_DEEP), ("levels", 12)):
+            for mode, bit in (("rdo", _FLAG_RDO), ("deep", _FLAG_DEEP),
+                              ("levels", 12)):
                 if flags & bit:
                     raise _unported(mode)
+            sparse = bool(flags & _FLAG_SPARSE)
             p = int(np.prod(padded_dims_levels(w, h, f, 1)))
-            hists = np.zeros((3, 256), np.uint32)
-            counts_list = []
+            n_planes = 6 if sparse else 3
+            hists = np.zeros((n_planes, 256), np.uint32)
+            counts_list, kcaps, bm_elided = [], [], []
             step = 1
-            for ch in range(3):
+            for ch in range(n_planes):
                 if off + 1040 > len(data):
                     raise InvalidBitstream("truncated ALC3 header section")
                 hdr = ChannelHeader.from_bytes(data[off : off + 1040])
                 off += 1040
-                if hdr.num_symbols != p:
-                    raise InvalidBitstream(
-                        f"num_symbols {hdr.num_symbols} != padded pixels {p}")
-                ns = _segment_geometry(p, s_seg)[0]
-                if ns != n_seg:
+                hists[ch] = hdr.histogram
+                step = hdr.quant_step
+                if sparse and hdr.num_symbols == 0:
+                    # an elided plane: no segments; its bitmap and value
+                    # sections are elided together
+                    if ch >= 3 and not bm_elided[ch - 3]:
+                        raise InvalidBitstream(
+                            "sparse value capacity 0 for a coded bitmap")
+                    if hdr.compressed_len:
+                        raise InvalidBitstream(
+                            "elided plane with nonzero payload")
+                    if ch >= 3:
+                        kcaps.append(0)
+                    else:
+                        bm_elided.append(True)
+                    counts_list.append(np.zeros((0,), np.int64))
+                    continue
+                if sparse and ch >= 3:
+                    # a value plane's capacity comes from its own header
+                    plane_sym = hdr.num_symbols
+                    if plane_sym % seg:
+                        raise InvalidBitstream(
+                            "sparse value capacity not segment-aligned")
+                    if (plane_sym // seg) % DEFAULT_V_SEG:
+                        raise InvalidBitstream(
+                            "sparse value capacity not V-aligned")
+                    if plane_sym > _segment_geometry(_sparse_pp(p), s_seg)[1]:
+                        raise InvalidBitstream(
+                            "sparse value capacity exceeds the plane size")
+                    if bm_elided[ch - 3]:
+                        raise InvalidBitstream(
+                            "coded value plane for an elided bitmap")
+                    kcaps.append(plane_sym)
+                elif sparse:
+                    bm_elided.append(False)
+                    plane_sym = _sparse_pp(p) // 8
+                    if hdr.num_symbols != plane_sym:
+                        raise InvalidBitstream(
+                            f"bitmap num_symbols {hdr.num_symbols} != "
+                            f"{plane_sym}")
+                else:
+                    plane_sym = p
+                    if hdr.num_symbols != p:
+                        raise InvalidBitstream(
+                            f"num_symbols {hdr.num_symbols} != padded pixels {p}")
+                ns = _segment_geometry(plane_sym, s_seg)[0]
+                if not sparse and ns != n_seg:
                     raise InvalidBitstream(
                         f"{n_seg} segments cannot cover {p} symbols")
                 if off + 4 * ns > len(data):
@@ -391,16 +777,14 @@ class Alc3Codec:
                 off += 4 * ns
                 if int(ch_counts.sum()) * 2 != hdr.compressed_len:
                     raise InvalidBitstream("segment counts disagree with header")
-                hists[ch] = hdr.histogram
-                step = hdr.quant_step
                 counts_list.append(ch_counts)
-            metas.append((step, hists, counts_list))
+            metas.append((step, hists, counts_list, sparse, tuple(kcaps)))
 
         chunks = []
         # every coded segment carries at least the 2·NG state-flush words
         # and at most s_seg steps' refills plus the flush
         segment_cap = (s_seg + 2) * NG
-        for step, hists, counts_list in metas:
+        for step, hists, counts_list, sparse, kcaps in metas:
             flat_counts = np.concatenate(counts_list)
             if flat_counts.size == 0:
                 raise InvalidBitstream("ALC3 chunk with no segments")
@@ -422,11 +806,12 @@ class Alc3Codec:
                 torch.as_tensor(streams.reshape(n_rows, w_rows, NG), device=dev),
                 torch.as_tensor(flat_counts.astype(np.int32), device=dev),
                 torch.as_tensor(hists.astype(np.int64), device=dev),
+                sparse, kcaps,
             ))
         # recover quality from the step map step = max(64 - q*63/100, 1)
         step0 = metas[0][0] if metas else 1
         quality = next(
             (q for q in range(100, -1, -1) if quality_to_step(q) == step0), 90)
         codec = cls(quality=quality, wavelet=wavelet_type, s_seg=int(s_seg),
-                    deep=False, device=dev)
+                    deep=False, sparse=bool(metas) and metas[0][3], device=dev)
         return codec, chunks

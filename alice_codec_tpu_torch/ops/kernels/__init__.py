@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from .lift import forward_quant, inverse_dequant
 from .rans3 import decode_words, encode_words
+from .sparse import compact, expand
 
 __all__ = ["WRAPPERS", "reset_launches", "launch_counts"]
 
@@ -18,6 +19,8 @@ WRAPPERS = {
     "encode_words": encode_words,
     "decode_words": decode_words,
     "inverse_dequant": inverse_dequant,
+    "compact": compact,
+    "expand": expand,
 }
 
 

@@ -6,7 +6,10 @@ and the per-plane container header.
   (int16) → fused lift + quantize + zigzag kernel → uint8 symbols
   (3, P) and row-sampled 256-bin histograms;
 * decode: symbols (3, P) → fused dequantize + inverse lift kernel →
-  crop → inverse YCoCg-R → uint8 RGB.
+  crop → inverse YCoCg-R → uint8 RGB;
+* sparse phase 1: the encode stage over the channels that carry nonzero
+  colour only, with the value rows each needs (the zero-channel elision
+  of the JAX package's ``encode_sparse_phase1``).
 """
 
 from __future__ import annotations
@@ -20,8 +23,16 @@ import torch
 from .core import WaveletType
 from .ops import color, quant
 from .ops.kernels.lift import forward_quant, inverse_dequant
+from .ops.kernels.sparse import tile_rows
 
-__all__ = ["ChannelHeader", "encode_device", "decode_device"]
+__all__ = ["ChannelHeader", "encode_device", "decode_device",
+           "encode_sparse_phase1"]
+
+# The tile budgets of the JAX package's Pallas lift kernels
+# (lift_kernels.py:66-73): they decide which shapes its sparse phase 1
+# reports per-channel colour flags for (see _tpu_fused).
+_TILE_BYTES = 6 * 1024 * 1024
+_FRAME_BYTES = 9 * 1024 * 1024
 
 
 def _edge_index(n: int, padded: int, device) -> torch.Tensor:
@@ -76,17 +87,86 @@ def encode_device(rgb: torch.Tensor, step: int, dead_zone: int, *,
 
 def decode_device(symbols: torch.Tensor, step: torch.Tensor, *,
                   wavelet_type: WaveletType, dims, padded,
-                  exact: bool = False) -> torch.Tensor:
+                  exact: bool = False, active=None) -> torch.Tensor:
     """Fused decode stage: symbols (3, P) uint8 → RGB (T, H, W, 3) uint8.
     ``step``: per-channel (3,) quant steps.  ``exact`` selects the
     exact-undo inverse; the default replays the reference's
-    negated-coefficient inverse."""
+    negated-coefficient inverse.
+
+    ``active``: the channels that may carry nonzero symbols.  An all-zero
+    channel inverse-lifts to exact zeros, so only the active ones go
+    through the kernel and the rest are zeros (bit-exact)."""
     w, h, t = dims
     pw, ph, pf = padded
-    volume = inverse_dequant(symbols.reshape(3, pf, ph, pw), wavelet_type,
-                             step, exact=exact)
-    chans = volume[:, :t, :h, :w]
+    sym4 = symbols.reshape(3, pf, ph, pw)
+    act = (0, 1, 2) if active is None else tuple(sorted(active))
+    if act == (0, 1, 2):
+        volume = inverse_dequant(sym4, wavelet_type, step, exact=exact)
+        chans = [volume[c, :t, :h, :w] for c in range(3)]
+    else:
+        chans = [torch.zeros((t, h, w), dtype=torch.int16,
+                             device=symbols.device)] * 3
+        if act:
+            idx = torch.tensor(act, device=symbols.device)
+            volume = inverse_dequant(sym4[idx], wavelet_type,
+                                     step.reshape(-1)[idx], exact=exact)
+            for i, c in enumerate(act):
+                chans[c] = volume[i, :t, :h, :w]
     return color.ycocg_r_to_rgb(chans[0], chans[1], chans[2])
+
+
+def _pick_tile(n: int, cap: int) -> int:
+    """Largest 8-aligned divisor of ``n`` up to ``cap``, or ``n`` when it
+    fits (the JAX package's _pick_hb / _pick_band)."""
+    if n <= cap:
+        return n
+    b = 0
+    for d in range(8, min(n, cap) + 1, 8):
+        if n % d == 0:
+            b = d
+    return b
+
+
+def _tpu_fused(padded) -> bool:
+    """Whether the JAX package runs its fused Pallas lift for a padded
+    (pW, pH, pT) volume of int16 coefficients (lift_kernels.lift3d_ok).
+    Only there does its sparse phase 1 report which channels are zero;
+    elsewhere it reports all three as nonzero, and the capacity caches
+    of the codec see the difference, so the port follows it."""
+    w, h, t = padded
+    if t % 2 or h % 2 or w % 2:
+        return False
+    if _pick_tile(h, max(1, _TILE_BYTES // (t * w * 4))) < 1:
+        return False
+    if h * w * 2 <= _FRAME_BYTES:
+        return True
+    return (_pick_tile(h, max(1, _TILE_BYTES // (w * 4))) >= 8
+            and _pick_tile(w, max(1, _TILE_BYTES // (h * 4))) >= 128)
+
+
+def encode_sparse_phase1(rgb: torch.Tensor, step: int, dead_zone: int, *,
+                         wavelet_type: WaveletType, padded, pp: int,
+                         active=(0, 1, 2)):
+    """Sparse phase 1: colour + pad, then the fused lift + quantize
+    kernel over the ``active`` channels only (a channel whose colour
+    plane is all zero gives all-zero symbols, so skipping it is
+    bit-exact).  Returns ``(symbols (na, pp) uint8 — padded with zeros
+    to ``pp``, trows (na, pp/1024) int32 — the value rows of each tile
+    (:func:`~.ops.kernels.sparse.tile_rows`), flags (3,) bool — which
+    colour planes are nonzero, regardless of ``active``)``."""
+    pw, ph, pf = padded
+    active = tuple(sorted(active))
+    chans = _color_pad(rgb, padded)
+    if _tpu_fused(padded):
+        flags = (chans.reshape(3, -1) != 0).any(1)
+    else:
+        flags = torch.ones(3, dtype=torch.bool, device=chans.device)
+    if active != (0, 1, 2):
+        chans = chans[torch.tensor(active, device=chans.device)]
+    symbols = forward_quant(chans, wavelet_type, step, dead_zone).reshape(
+        len(active), pf * ph * pw)
+    symbols = torch.nn.functional.pad(symbols, (0, pp - pf * ph * pw))
+    return symbols, tile_rows(symbols), flags
 
 
 @dataclass

@@ -11,19 +11,26 @@ Phases (any failure raises and exits non-zero before the last line):
 1. print the card's name and power limit; build the kernels from
    ``alice_codec_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. every kernel against its plain PyTorch version on the card, bit-exact:
-   at the main path's full widths (a 64×1080×1920 chunk; all 1536 rANS
-   segments) and at small odd-padded shapes; with per-kernel timings;
-3. the committed JAX-written golden (``tests/golden/torch``): the port
-   decodes its container to the JAX decodes (both inverse modes) and
-   re-encodes its input to the same bytes;
-4. the main path: ``Alc3Codec(quality=90, wavelet="cdf53")`` encode →
-   decode of one 64×1080×1920 chunk kept on the card, with the launch
-   counts of every kernel read around that one run; the decoded symbols
-   equal the encoded ones, and the container and RGB equal those of the
-   same pipeline run with the plain versions on the card;
-5. timings (chunks/s, peak memory), one roundtrip under torch.profiler
-   (device time by kernel), the ``kernels`` JSON line and the final
-   ``{"ok": true, ...}`` line.
+   at the main paths' full widths (a 64×1080×1920 chunk; all 1536 rANS
+   segments; compact / expand on the q=50 chroma planes) and at small
+   shapes (odd-padded volumes; sparse planes at densities 0-100 % with
+   capacities that differ per plane, and a hostile bitmap); with
+   per-kernel timings;
+3. the committed JAX-written goldens (``tests/golden/torch`` and its
+   ``sparse/``): the port decodes each container to the JAX decode and
+   re-encodes each input to the same bytes, the sparse codec's capacity
+   caches included;
+4. three paths at full width, each over one 64×1080×1920 chunk kept on
+   the card, with the launch counts of every kernel set to 0 just before
+   the path's encode → decode and read just after:
+   ``Alc3Codec(90, "cdf53")`` (dense), the north star
+   ``Alc3Codec(90, "cdf53", sparse=True)`` and
+   ``Alc3Codec(50, "cdf53", sparse=True)``; each container and RGB equal
+   those of the same pipeline run with the plain versions on the card,
+   and each sparse path's RGB equals the dense codec's at its quality;
+5. timings (chunks/s, peak memory) of each path, one roundtrip of each
+   under torch.profiler (device time by kernel), the ``kernels`` JSON
+   line and the final ``{"ok": true, ...}`` line.
 
 Needs no network and imports neither JAX nor the JAX package.
 """
@@ -40,8 +47,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-T, H, W = 64, 1080, 1920   # the main path's chunk
+T, H, W = 64, 1080, 1920   # the main paths' chunk
 QUALITY = 90
+SPARSE_Q = (90, 50)        # the north star, and a quality with sparse planes
 
 
 def check(ok: bool, what: str) -> None:
@@ -66,6 +74,25 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_profile(fn):
+    """One call of ``fn`` under torch.profiler: ``(wall ms, [(kernel name,
+    device ms, count)] sorted by device time)``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return wall_ms, rows
+
+
 def max_abs_err(a, b) -> int:
     import torch
 
@@ -73,6 +100,32 @@ def max_abs_err(a, b) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def sha256(path: Path) -> str:
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def golden_input(kind: str, seed: int, shape):
+    """The (T, H, W, 3) uint8 input of one sparse golden chunk
+    (``tests/golden/torch/sparse/manifest.json``).  Also used by the
+    golden generator and the tests; the repository root must be on
+    ``sys.path`` (for ``bench``)."""
+    import numpy as np
+    from bench import _test_chunk
+
+    t, h, w = shape
+    if kind == "chunk":
+        return _test_chunk(t, h, w, seed=seed)
+    if kind == "gray":
+        g = _test_chunk(t, h, w, seed=seed)[..., :1]
+        return np.broadcast_to(g, g.shape[:3] + (3,)).copy()
+    if kind == "noise":
+        return np.random.default_rng(seed).integers(
+            0, 256, (t, h, w, 3), dtype=np.uint8)
+    if kind == "black":
+        return np.zeros((t, h, w, 3), np.uint8)
+    raise ValueError(f"unknown input kind {kind!r}")
 
 
 def bound_ms(nbytes: int) -> float:
@@ -84,13 +137,15 @@ def plain_kernels():
     """Route the codec's kernel calls to the plain versions (on the card)
     for the span of the block."""
     from alice_codec_tpu_torch import alc3, pipeline
-    from alice_codec_tpu_torch.ops.kernels import lift, rans3
+    from alice_codec_tpu_torch.ops.kernels import lift, rans3, sparse
 
     swaps = [
         (pipeline, "forward_quant", lift.forward_quant_plain),
         (pipeline, "inverse_dequant", lift.inverse_dequant_plain),
         (alc3, "encode_words", rans3.encode_words_plain),
         (alc3, "decode_words", rans3.decode_words_plain),
+        (alc3, "compact", sparse.compact_plain),
+        (alc3, "expand", sparse.expand_plain),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -119,6 +174,8 @@ def main() -> int:
         inverse_dequant_plain)
     from alice_codec_tpu_torch.ops.kernels.rans3 import (
         NG, decode_words, decode_words_plain, encode_words, encode_words_plain)
+    from alice_codec_tpu_torch.ops.kernels.sparse import (
+        compact, compact_plain, expand, expand_plain, tile_rows)
     from alice_codec_tpu_torch.ops.tables_device import freq_table_device
     from bench import _test_chunk
 
@@ -240,16 +297,102 @@ def main() -> int:
           f"serial chain {s_seg} steps per segment")
     del chans, sym_k, symbols, segs, st_k, cn_k, d_k
     torch.cuda.empty_cache()
+
+    # K5 / K6 at small shapes: densities 0-100 % with capacities that
+    # differ per plane, then a hostile bitmap (popcount past its capacity)
+    pp_small = 1 << 20
+    for density in (0.0, 0.03, 0.3, 1.0):
+        planes = np.stack([
+            np.where(rng.random(pp_small) < d, rng.integers(1, 256, pp_small), 0)
+            for d in (density, density / 2, 0.9 * density)]).astype(np.uint8)
+        sym_t = torch.as_tensor(planes, device=dev)
+        trows = tile_rows(sym_t)
+        krs = tuple(r + 8 * (i + 1)
+                    for i, r in enumerate(trows.sum(-1).tolist()))
+        bm_k, vals_k = compact(sym_t, trows, krs)
+        bm_p, vals_p = compact_plain(sym_t, trows, krs)
+        check(max_abs_err(bm_k, bm_p) == 0 and max_abs_err(vals_k, vals_p) == 0,
+              f"compact differs from its plain version at density {density}")
+        out_k = expand(bm_k, vals_k, krs)
+        check(max_abs_err(out_k, expand_plain(bm_k, vals_k, krs)) == 0,
+              f"expand differs from its plain version at density {density}")
+        check(bool(torch.equal(out_k, sym_t)),
+              f"expand does not invert compact at density {density}")
+    krs_h = (64, 1024)
+    bm_h = torch.as_tensor(rng.integers(0, 256, (2, pp_small // 8), dtype=np.uint8),
+                           device=dev)
+    vals_h = torch.as_tensor(rng.integers(0, 256, (sum(krs_h), NG), dtype=np.uint8),
+                             device=dev)
+    check(max_abs_err(expand(bm_h, vals_h, krs_h),
+                      expand_plain(bm_h, vals_h, krs_h)) == 0,
+          "expand differs from its plain version on a hostile bitmap")
+    print("small shapes: compact / expand bit-exact (densities 0, 3, 30, 100 %, "
+          "per-plane capacities; hostile bitmap)")
+
+    # K5 / K6 at full width: the chroma planes of the q=50 chunk, at the
+    # capacities the q=50 path gives them
+    step50 = quality_to_step(50)
+    pp = alc3._sparse_pp(p)
+    sym50, trows50, _ = pipeline.encode_sparse_phase1(
+        rgb, step50, step50, wavelet_type=wt, padded=padded, pp=pp, active=(1, 2))
+    rows50 = trows50.sum(-1).tolist()
+    krs50, _ = Alc3Codec(50, "cdf53", sparse=True)._settle_krs(rows50, (1, 2), pp)
+    check(all(0 < k < alc3._segment_geometry(pp, alc3.DEFAULT_S_SEG)[0]
+              * alc3.DEFAULT_S_SEG for k in krs50),
+          f"the q=50 chroma planes are not sparse (capacity rows {krs50})")
+    bm_k, vals_k = compact(sym50, trows50, krs50)
+    bm_p, vals_p = compact_plain(sym50, trows50, krs50)
+    err = max(max_abs_err(bm_k, bm_p), max_abs_err(vals_k, vals_p))
+    check(err == 0, f"compact differs from its plain version by {err}")
+    del bm_p, vals_p
+    used = sum(rows50) * NG
+    stats["compact"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: compact(sym50, trows50, krs50), 10),
+        plain_ms=time_ms(lambda: compact_plain(sym50, trows50, krs50), 2),
+        bound_ms=bound_ms(sym50.numel() + trows50.numel() * 4 + bm_k.numel()
+                          + used))
+    out_k = expand(bm_k, vals_k, krs50)
+    err = max_abs_err(out_k, expand_plain(bm_k, vals_k, krs50))
+    check(err == 0, f"expand differs from its plain version by {err}")
+    check(bool(torch.equal(out_k, sym50)), "expand does not invert compact")
+    stats["expand"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: expand(bm_k, vals_k, krs50), 10),
+        plain_ms=time_ms(lambda: expand_plain(bm_k, vals_k, krs50), 2),
+        bound_ms=bound_ms(bm_k.numel() + used + out_k.numel()))
+    # the wrappers' device time split: the CUDA kernel, and the torch
+    # prepass (tile counts, prefix sums) and output allocation around it
+    for name, fn in (("compact", lambda: compact(sym50, trows50, krs50)),
+                     ("expand", lambda: expand(bm_k, vals_k, krs50))):
+        fn()
+        _, rows = device_profile(fn)
+        kernel = sum(ms for key, ms, _ in rows if f"::{name}(" in key)
+        stats[name]["kernel_ms"] = kernel
+        print(f"{name}: device time of one wrapper call {sum(r[1] for r in rows):.3f} "
+              f"ms, of it the kernel {kernel:.3f} ms [{card}]")
+    # yardsticks, not the same function: one torch call that gathers the
+    # nonzeros (no bitmap, no tile padding), and its scatter back
+    mask = sym50 != 0
+    nz = torch.masked_select(sym50, mask)
+    ms_select = time_ms(lambda: torch.masked_select(sym50, mask), 10)
+    ms_scatter = time_ms(
+        lambda: torch.zeros_like(sym50).masked_scatter_(mask, nz), 10)
+    print(f"sparse: q=50 chroma planes {2} x {pp} symbols, value rows {rows50}, "
+          f"capacity rows {list(krs50)}; yardsticks masked_select "
+          f"{ms_select:.3f} ms, masked_scatter_ {ms_scatter:.3f} ms [{card}]")
+    del sym50, trows50, bm_k, vals_k, out_k, mask, nz
+    torch.cuda.empty_cache()
     for name, s in stats.items():
         print(f"{name}: {s['ms']:.3f} ms per launch (plain {s['plain_ms']:.1f} ms, "
               f"bytes bound {s['bound_ms']:.3f} ms), max |kernel - plain| "
               f"{s['max_abs_err']} [{card}]")
 
-    # ── 3. the JAX-written golden ───────────────────────────────
+    # ── 3. the JAX-written goldens ──────────────────────────────
     gdir = ROOT / "tests" / "golden" / "torch"
     man = json.loads((gdir / "manifest.json").read_text())
     for name, digest in man["sha256"].items():
-        check(hashlib.sha256((gdir / name).read_bytes()).hexdigest() == digest,
+        check(sha256(gdir / name) == digest,
               f"golden file {name} does not match its manifest")
     g_rgb = _test_chunk(man["t"], man["h"], man["w"], seed=man["seed"])
     g_alc = (gdir / "dense.alc").read_bytes()
@@ -266,94 +409,149 @@ def main() -> int:
     print("golden: JAX container decoded bit-exact (both modes); "
           "re-encode byte-identical")
 
-    # ── 4. the main path at full width ──────────────────────────
-    codec = Alc3Codec(quality=QUALITY, wavelet="cdf53")
-    out = codec.decode(codec.encode(rgb))  # warm-up
-    torch.cuda.synchronize()
-    del out
-    reset_launches()
-    chunk = codec.encode(rgb)
-    out = codec.decode(chunk)
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    print(f"main path launches: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    sdir = gdir / "sparse"
+    cases = json.loads((sdir / "manifest.json").read_text())["cases"]
+    n_files = 0
+    for case, spec in cases.items():
+        s_codec = Alc3Codec(spec["quality"], spec["wavelet"], s_seg=spec["s_seg"],
+                            sparse=True)
+        for ck in spec["chunks"]:
+            chunk = s_codec.encode(golden_input(ck["kind"], ck["seed"], ck["shape"]))
+            if "file" not in ck:  # primes the codec's caches only
+                continue
+            data = (sdir / ck["file"]).read_bytes()
+            check(sha256(sdir / ck["file"]) == ck["sha256"],
+                  f"sparse golden {ck['file']} does not match its manifest")
+            check(list(chunk.kcaps) == ck["kcaps"],
+                  f"sparse golden {ck['file']}: capacities {chunk.kcaps}")
+            check(Alc3Codec.to_bytes(chunk) == data,
+                  f"sparse golden {ck['file']}: re-encode differs")
+            _, chunks = Alc3Codec.from_bytes(data)
+            got = s_codec.decode(chunks[0], as_numpy=True)
+            check(hashlib.sha256(got.tobytes()).hexdigest() == ck["rgb_sha256"],
+                  f"sparse golden {ck['file']}: decode differs from the JAX decode")
+            n_files += 1
+    print(f"sparse goldens: {n_files} JAX containers decoded bit-exact and "
+          f"re-encoded byte-identical (cases {', '.join(cases)})")
 
-    n_seg = chunk.n_segments
-    v_seg = alc3._pick_v_seg(n_seg)
-    sym_enc, _ = pipeline.encode_device(
-        rgb, codec.step, codec.step, wavelet_type=codec.wavelet_type,
-        padded=padded, hist_stride=alc3.HIST_STRIDE)
-    sym_dec = alc3._entropy_decode(chunk.streams, chunk.counts, chunk.hists,
-                                   padded=padded, s_seg=chunk.s_seg, v_seg=v_seg)
-    check(bool(torch.equal(sym_enc, sym_dec)),
-          "decoded symbols differ from the encoded symbols")
-    del sym_enc, sym_dec
-    data = Alc3Codec.to_bytes(chunk)
-    with plain_kernels():
-        p_chunk = codec.encode(rgb)
-        p_data = Alc3Codec.to_bytes(p_chunk)
-        p_out = codec.decode(p_chunk)
-    check(data == p_data, "container differs from the plain pipeline's")
-    check(bool(torch.equal(out, p_out)), "RGB differs from the plain pipeline's")
-    del p_chunk, p_out
-    mse = float(((out.float() - rgb.float()) ** 2).mean().item())
-    psnr = 10 * np.log10(255.0 ** 2 / mse) if mse else float("inf")
-    ratio = rgb_np.nbytes / max(chunk.compressed_size, 1)
-    print(f"main path: {len(data)} container bytes, compression "
-          f"{ratio:.4f}x, PSNR {psnr:.4f} dB; equal to the plain pipeline")
-    del out, chunk
+    # ── 4. the main paths at full width ─────────────────────────
+    paths = {"dense_q90": Alc3Codec(QUALITY, "cdf53")}
+    for q in SPARSE_Q:
+        paths[f"sparse_q{q}"] = Alc3Codec(q, "cdf53", sparse=True)
+    dense_rgb = {}
+    by_path = {}
+    for name, codec in paths.items():
+        out = codec.decode(codec.encode(rgb))  # warm-up (fills the caches)
+        torch.cuda.synchronize()
+        del out
+        reset_launches()
+        chunk = codec.encode(rgb)
+        out = codec.decode(chunk)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        print(f"{name} launches: {launches}")
+        need = ["forward_quant", "encode_words", "decode_words", "inverse_dequant"]
+        if name == "sparse_q50":
+            need += ["compact", "expand"]
+        for k in need:
+            check(launches[k] > 0, f"kernel {k} was not launched on {name}")
+
+        s_seg = chunk.s_seg
+        if chunk.sparse:
+            sym_enc, _, _ = pipeline.encode_sparse_phase1(
+                rgb, codec.step, codec.step, wavelet_type=codec.wavelet_type,
+                padded=padded, pp=pp)
+            sym_enc = sym_enc[:, :p]
+            nb, _ = alc3._segment_geometry(pp // 8, s_seg)
+            sym_dec = alc3._sparse_entropy_expand(
+                chunk.streams, chunk.counts, chunk.hists, p=p, s_seg=s_seg,
+                kcaps=chunk.kcaps, v_b=alc3._pick_v_seg(nb))
+        else:
+            sym_enc, _ = pipeline.encode_device(
+                rgb, codec.step, codec.step, wavelet_type=codec.wavelet_type,
+                padded=padded, hist_stride=alc3.HIST_STRIDE)
+            sym_dec = alc3._entropy_decode(
+                chunk.streams, chunk.counts, chunk.hists, padded=padded,
+                s_seg=s_seg, v_seg=alc3._pick_v_seg(chunk.n_segments))
+        check(bool(torch.equal(sym_enc, sym_dec)),
+              f"{name}: decoded symbols differ from the encoded symbols")
+        del sym_enc, sym_dec
+        data = Alc3Codec.to_bytes(chunk)
+        with plain_kernels():
+            p_codec = Alc3Codec(codec.quality, "cdf53", sparse=chunk.sparse)
+            p_chunk = p_codec.encode(rgb)
+            p_data = Alc3Codec.to_bytes(p_chunk)
+            p_out = p_codec.decode(p_chunk)
+        check(data == p_data, f"{name}: container differs from the plain pipeline's")
+        check(bool(torch.equal(out, p_out)),
+              f"{name}: RGB differs from the plain pipeline's")
+        del p_chunk, p_out
+        if chunk.sparse:
+            if dense_rgb.get(codec.quality) is None:
+                d_codec = Alc3Codec(codec.quality, "cdf53")
+                dense_rgb[codec.quality] = d_codec.decode(d_codec.encode(rgb))
+            check(bool(torch.equal(out, dense_rgb[codec.quality])),
+                  f"{name}: RGB differs from the dense codec's")
+        else:
+            dense_rgb[codec.quality] = out
+        mse = float(((out.float() - rgb.float()) ** 2).mean().item())
+        psnr = 10 * np.log10(255.0 ** 2 / mse) if mse else float("inf")
+        ratio = rgb_np.nbytes / max(chunk.compressed_size, 1)
+        kc = f", kcaps {list(chunk.kcaps)}" if chunk.sparse else ""
+        print(f"{name}: {len(data)} container bytes, compression {ratio:.4f}x, "
+              f"PSNR {psnr:.4f} dB{kc}; equal to the plain pipeline"
+              + ("; RGB equal to the dense codec's" if chunk.sparse else ""))
+        by_path[name] = launches
+        del out, chunk
+        torch.cuda.empty_cache()
+    del dense_rgb
     torch.cuda.empty_cache()
 
     # ── 5. timings ──────────────────────────────────────────────
     reps = 5
-    chunk = codec.encode(rgb)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t_enc = t_dec = 0.0
-    t_all = time.perf_counter()
-    for _ in range(reps):
-        t0 = time.perf_counter()
+    for name, codec in paths.items():
         chunk = codec.encode(rgb)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = codec.decode(chunk)
-        torch.cuda.synchronize()
-        t_enc += t1 - t0
-        t_dec += time.perf_counter() - t1
-    t_all = time.perf_counter() - t_all
-    peak = torch.cuda.max_memory_allocated()
-    print(f"encode {reps / t_enc:.4f} chunks/s, decode {reps / t_dec:.4f} "
-          f"chunks/s, roundtrip {reps / t_all:.4f} chunks/s at {T}x{H}x{W} "
-          f"(host clock, synchronized); peak memory {peak / 2**30:.3f} GiB "
-          f"[{card}]")
+        del chunk
+        torch.cuda.reset_peak_memory_stats()
+        t_enc = t_dec = 0.0
+        t_all = time.perf_counter()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            chunk = codec.encode(rgb)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = codec.decode(chunk)
+            torch.cuda.synchronize()
+            t_enc += t1 - t0
+            t_dec += time.perf_counter() - t1
+            del chunk, out
+        t_all = time.perf_counter() - t_all
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{name}: encode {reps / t_enc:.4f} chunks/s, decode "
+              f"{reps / t_dec:.4f} chunks/s, roundtrip {reps / t_all:.4f} "
+              f"chunks/s at {T}x{H}x{W} (host clock, synchronized); peak "
+              f"memory {peak / 2**30:.3f} GiB [{card}]")
 
-    # where the time goes: one roundtrip under torch.profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = codec.decode(codec.encode(rgb))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    print(f"profile: one roundtrip {wall_ms:.3f} ms wall (profiled), device "
-          f"kernel time {busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f} % busy "
-          f"[{card}]")
-    for key, ms, count in rows[:14]:
-        print(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+        # where the time goes: one roundtrip under torch.profiler
+        wall_ms, rows = device_profile(lambda: codec.decode(codec.encode(rgb)))
+        busy_ms = sum(r[1] for r in rows)
+        print(f"{name} profile: one roundtrip {wall_ms:.3f} ms wall (profiled), "
+              f"device kernel time {busy_ms:.3f} ms = "
+              f"{100 * busy_ms / wall_ms:.1f} % busy [{card}]")
+        for key, ms, count in rows[:14]:
+            print(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+        for key, ms, count in rows[14:]:
+            if "::compact(" in key or "::expand(" in key:
+                print(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
 
     sources = {
         "forward_quant": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:354"),
         "encode_words": ("rans3.cu", "alice_codec_tpu/ops/pallas/rans3_kernels.py:499"),
         "decode_words": ("rans3.cu", "alice_codec_tpu/ops/pallas/rans3_kernels.py:289"),
         "inverse_dequant": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:375"),
+        "compact": ("sparse.cu", "alice_codec_tpu/ops/pallas/sparse_kernels.py:485"),
+        "expand": ("sparse.cu", "alice_codec_tpu/ops/pallas/sparse_kernels.py:697"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -361,13 +559,17 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"alice_codec_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": by_path["sparse_q50"][name],
+            "launches_by_path": {path: n[name] for path, n in by_path.items()},
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
         })
+        if "kernel_ms" in s:
+            kernels[-1]["kernel_ms"] = s["kernel_ms"]
     print("kernels: " + json.dumps(
-        [{k: d[k] for k in ("name", "launches", "max_abs_err")} for d in kernels]))
+        [{k: d[k] for k in ("name", "launches_by_path", "max_abs_err")}
+         for d in kernels]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@ CPU (the kernels' plain versions): byte-identical containers, decodes in
 both inverse modes, cross-decoding through bytes and through
 ``DeviceChunk.from_numpy`` / ``to_numpy``, the committed JAX golden
 (``tests/golden/torch``, written by ``tools/golden/gen_torch_goldens.py``),
-container validation and the modes not ported yet."""
+container validation and the modes not ported yet (the sparse codec is
+held to JAX in test_torch_alc3_sparse.py)."""
 
 import hashlib
 import json
@@ -219,14 +220,14 @@ def test_corrupt_containers_raise(case):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(sparse=True), dict(rdo=True), dict(levels=2), dict(quality=100),
-    dict(deep=True)])
+    dict(sparse=True, levels=2), dict(rdo=True), dict(levels=2),
+    dict(quality=100), dict(deep=True), dict(sparse=True, deep=True)])
 def test_unported_modes_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Alc3Codec(device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("flags", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("flags", [1, 2, 4, 8, 16 | 4, 16 | 2])
 def test_unported_container_flags_raise(port_run, flags):
     data = bytearray(port_run["data"])
     data[30] = flags  # the first chunk's flags byte
