@@ -2,9 +2,11 @@
 
 The port of ``alice_codec_tpu`` (JAX/Pallas on a TPU), which stays the
 reference.  This package imports neither JAX nor the JAX package.  It
-covers the dense ALC3 roundtrip (:class:`Alc3Codec` with its defaults):
-its containers are byte-identical to the JAX package's, and each
-package decodes the other's.
+covers the ALC3 chunk codec (:class:`Alc3Codec`) in every mode — dense
+or sparse, fixed-step or AnalyticalRDO, 8-bit or deep 16-bit symbols,
+1-4 decomposition levels — except batched encode / decode: its
+containers are byte-identical to the JAX package's, and each package
+decodes the other's.
 
 Entry points run on the CUDA card unless given ``device="cpu"``; on the
 CPU every kernel is replaced by its plain PyTorch version.

@@ -1,7 +1,10 @@
-"""ALC3 chunk codec (PyTorch port of ``alice_codec_tpu/alc3.py`` with
-``rdo=False, deep=False, levels=1``): the dense path (the constructor's
-default) and sparse significance coding (``sparse=True``, the JAX
-package's north star).
+"""ALC3 chunk codec (PyTorch port of ``alice_codec_tpu/alc3.py``): the
+dense path (the constructor's default), sparse significance coding
+(``sparse=True``, the JAX package's north star), AnalyticalRDO per-band
+steps (``rdo=True``), deep 16-bit symbols (``deep=True``, on by default
+at q=100, where it is lossless with ``exact=True``) and multi-level
+decomposition (``levels`` 2-4), with every composition the JAX package
+accepts.
 
 * dense encode: uint8 RGB → color → pad → fused lift + quantize kernel →
   sampled histograms → frequency tables → word-rANS encode kernel.  The
@@ -9,33 +12,37 @@ package's north star).
   histograms) stays on the device.
 * dense decode: tables from the stored histograms → word-rANS decode
   kernel → fused dequantize + inverse lift kernel → inverse color → RGB.
+* the other modes swap the transform stage (``pipeline``): the plain 3D
+  lift kernel and the subgrid lifts, then per-band (rdo) or 16-bit (deep:
+  6 lo/hi byte planes, each with its own table) symbols; the entropy
+  stage is the same.
 * sparse encode: the transform over the channels with nonzero colour
   only; each plane then is elided (no nonzero symbol), coded dense (its
   value rows reach ``DENSE_ROW_FRAC`` of the plane) or split by the
   compact kernel into a significance bitmap and its nonzero values; the
   sparse planes' bitmaps and every coded plane's values go through the
   word-rANS encode kernel.  Sparse decode reverses it with the decode and
-  expand kernels.
+  expand kernels.  Deep chunks' 6 byte planes ride the sparse wire as 6
+  planes of their own.
 
 The container (:meth:`Alc3Codec.to_bytes` / :meth:`Alc3Codec.from_bytes`)
 is the JAX package's ALC3 wire, version 7, byte for byte::
 
     "ALC3" | version u8 (=7) | wavelet u8 | w u32 | h u32 | f u32
     n_chunks u32 | s_seg u32 | n_segments u32
-    per chunk: flags u8 (16: sparse), then per plane (dense: Y, Co, Cg;
-    sparse: the 3 bitmap planes, then the 3 value planes):
+    per chunk: flags u8 (1: rdo, 2: deep, bits 2-3: levels − 1,
+    16: sparse), then per plane (Y, Co, Cg — or their lo/hi byte planes
+    when deep; sparse: the bitmap planes, then the value planes):
         ChannelHeader (1040 B) | segment count × u32 segment word counts
+        | [rdo, first 3 plane sections] 8 × i32 per-band quant steps
     payload: per chunk/plane/segment, the meaningful u16 words (LE)
 
 A sparse value plane's ``num_symbols`` is its capacity ``kcap``: 0 elides
 the plane (its bitmap section then has no segments either), the full
 dense capacity marks a dense plane (its bitmap segments ship elided).
 
-The other ALC3 modes (AnalyticalRDO steps, deep 16-bit symbols — on by
-default at q=100 — and multi-level decomposition) and ``encode_batch``
-are not ported yet: the codec and the container parser raise
-``NotImplementedError`` for them instead of falling back to another
-mode.
+``encode_batch`` / ``decode_batch`` are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,15 +63,22 @@ from .ops.kernels.rans3 import (
     encode_words,
     stream_rows,
 )
-from .ops.kernels.sparse import BLOCK_ROWS, DEFAULT_V_BLK, compact, expand
-from .ops.quant import build_histogram
+from .ops.kernels.sparse import (BLOCK_ROWS, DEFAULT_V_BLK, compact, expand,
+                                 tile_rows)
+from .ops.quant import AnalyticalRDO, quantize_bands_inter, to_symbols
 from .ops.tables_device import freq_table_device
 from .pipeline import (
     ChannelHeader,
-    _hist_sample,
+    _histograms,
+    decode_bands_device,
+    decode_deep_device,
     decode_device,
+    encode_bands_device,
+    encode_deep_device,
+    encode_deep_sparse_phase1,
     encode_device,
     encode_sparse_phase1,
+    transform_moments_device,
 )
 
 __all__ = ["DEFAULT_S_SEG", "HIST_STRIDE", "DeviceChunk", "Alc3Codec"]
@@ -81,20 +95,6 @@ _VERSION3 = 7  # v6: PROB_BITS 12 → 11; v7: zero-frequency absent symbols
 _FLAG_RDO = 1
 _FLAG_DEEP = 2
 _FLAG_SPARSE = 16  # bits 2-3 hold the decomposition depth
-
-_UNPORTED = {
-    "rdo": "AnalyticalRDO band steps (ROADMAP Queue 1 item 10)",
-    "deep": "deep 16-bit symbols (ROADMAP Queue 1 item 10)",
-    "levels": "multi-level decomposition (ROADMAP Queue 1 item 10)",
-}
-
-
-def _unported(mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the PyTorch port codes single-level ALC3 without rdo or deep "
-        f"symbols only; "
-        f"{_UNPORTED[mode]} is not ported yet")
-
 
 def _segment_geometry(padded_pixels: int, s_seg: int,
                       v_seg: int = DEFAULT_V_SEG) -> tuple[int, int]:
@@ -143,11 +143,6 @@ def _covered_hist(hists: torch.Tensor, symbols: torch.Tensor) -> torch.Tensor:
     return torch.where(idx[None, :] <= mx[:, None], hists.clamp(min=1), hists)
 
 
-def _histograms(planes: torch.Tensor) -> torch.Tensor:
-    """(n, N) byte planes → (n, 256) int64 histograms."""
-    return torch.stack([build_histogram(row) for row in planes])
-
-
 def _sparse_pp(p: int) -> int:
     """Plane symbols padded to a whole number of DEFAULT_V_BLK compaction
     blocks (the sparse wire codes this padded plane; decoders strip it
@@ -188,58 +183,47 @@ def _sampled_len(n: int, stride: int = HIST_STRIDE) -> int:
     return nb * NG if nb else n
 
 
-def _encode_chunk(rgb, step: int, dead_zone: int, *, wavelet_type, padded,
-                  s_seg: int, v_seg: int):
-    """Full dense encode: RGB (T, H, W, 3) uint8 → (streams, counts,
-    hists)."""
-    symbols, hists = encode_device(
-        rgb, step, dead_zone, wavelet_type=wavelet_type, padded=padded,
-        hist_stride=HIST_STRIDE)
+def _entropy_encode(symbols, hists, *, s_seg: int, v_seg: int):
+    """Dense entropy stage: (n, P) uint8 planes and their sampled
+    histograms → ``(streams, counts, covered hists)``; one table per plane,
+    one encode launch for all of them."""
+    n, p = symbols.shape
     hists = _covered_hist(hists, symbols)
-    p = padded[0] * padded[1] * padded[2]
     freqs, cums = freq_table_device(
         _table_hists(hists, p, s_seg=s_seg, v_seg=v_seg))
     n_seg, m = _segment_geometry(p, s_seg, v_seg)
     if m != p:
         symbols = torch.nn.functional.pad(symbols, (0, m - p))
     streams, counts = encode_words(
-        symbols.reshape(3 * n_seg, s_seg, NG), freqs, cums)
+        symbols.reshape(n * n_seg, s_seg, NG), freqs, cums)
     return streams, counts, hists
 
 
 def _entropy_decode(streams, counts, hists, *, padded, s_seg: int,
                     v_seg: int) -> torch.Tensor:
-    """Segment decode → (3, P) uint8 symbols."""
+    """Segment decode → (n, P) uint8 planes (n: the histograms' rows)."""
     p = padded[0] * padded[1] * padded[2]
     freqs, cums = freq_table_device(
         _table_hists(hists, p, s_seg=s_seg, v_seg=v_seg))
     sym = decode_words(streams, counts, freqs, cums, s_seg=s_seg)
-    return sym.reshape(3, -1)[:, :p]
-
-
-def _decode_chunk(streams, counts, hists, steps, *, wavelet_type, dims,
-                  padded, s_seg: int, v_seg: int, exact: bool = False):
-    """Full dense decode: entropy decode, then the inverse transform."""
-    sym = _entropy_decode(streams, counts, hists, padded=padded, s_seg=s_seg,
-                          v_seg=v_seg)
-    return decode_device(sym, steps, wavelet_type=wavelet_type, dims=dims,
-                         padded=padded, exact=exact)
+    return sym.reshape(hists.shape[0], -1)[:, :p]
 
 
 def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
-                         v_b: int, wire_active, dense=()):
+                         v_b: int, wire_active, wire_nc: int = 3, dense=()):
     """Sparse phase 2: compact kernel → bitmap + value planes → word-rANS
     encode kernel.
 
     ``symbols``: (npv, pp) uint8, the provided planes (wire planes
-    ``wire_active`` of the 3); ``krs``: per provided plane, its
+    ``wire_active`` of the ``wire_nc``: 3 channels, or the 6 byte planes
+    of a deep chunk); ``krs``: per provided plane, its
     value capacity in rows (``krs[i] · 128`` symbols, whole segments);
     0 elides the plane.  ``dense``: provided planes coded dense — their
     value section is the raw plane zero-padded to ``krs[i]`` rows (the
     full dense capacity) and their all-ones bitmap is never coded.
 
     Returns ``(streams, counts, hists)``: hists in the full wire layout
-    (6, 256) — bitmap rows, then value rows, with the rows of an
+    (2·wire_nc, 256) — bitmap rows, then value rows, with the rows of an
     elided plane synthesized; streams and counts of the coded planes only:
     their bitmap segments first (elided, count 0, for dense planes), then
     each coded plane's value segments."""
@@ -264,7 +248,7 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
         bm_parts[c] = torch.full((pp // 8,), 255, dtype=torch.uint8, device=dev)
     zero_bm = torch.zeros((pp // 8,), dtype=torch.uint8, device=dev)
     bitmaps = torch.stack([bm_parts.get(c, zero_bm) for c in range(npv)])
-    bm_hists = _covered_hist(_histograms(_hist_sample(bitmaps, HIST_STRIDE)),
+    bm_hists = _covered_hist(_histograms(bitmaps, HIST_STRIDE),
                              bitmaps)
     # an elided plane's bitmap histogram is all mass at 0; its value plane
     # has no symbols
@@ -272,13 +256,14 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
     zero_bm_hist[0] = _sampled_len(pp // 8)
     zero_v_hist = torch.zeros(256, dtype=torch.int64, device=dev)
     pos = {w: i for i, w in enumerate(wire_active)}
-    rows = [bm_hists[pos[w]] if w in pos else zero_bm_hist for w in range(3)]
-    for w in range(3):
+    rows = [bm_hists[pos[w]] if w in pos else zero_bm_hist
+            for w in range(wire_nc)]
+    for w in range(wire_nc):
         i = pos.get(w)
         if i in coded:
             v = values[i][None, :]
             rows.append(_covered_hist(
-                _histograms(_hist_sample(v, HIST_STRIDE)), v)[0])
+                _histograms(v, HIST_STRIDE), v)[0])
         else:
             rows.append(zero_v_hist)
     hists = torch.stack(rows)
@@ -306,7 +291,7 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
             counts.append(torch.zeros(nb, dtype=torch.int32, device=dev))
     # one launch per value plane: planes differ in capacity and table
     for c in coded:
-        w = 3 + wire_active[c]
+        w = wire_nc + wire_active[c]
         vf, vc = freq_table_device(hists[w : w + 1])
         s_v, c_v = encode_words(
             values[c].reshape(krs[c] // s_seg, s_seg, NG), vf, vc)
@@ -316,17 +301,18 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
 
 
 def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
-                           kcaps, v_b: int) -> torch.Tensor:
-    """Sparse decode front half → (3, p) uint8 symbols.  ``kcaps``: per
-    plane, its value capacity in symbols — 0 elides the plane (exact
-    zeros), the full dense capacity marks a dense plane (its value
-    symbols are the plane; its bitmap is never read)."""
+                           kcaps, v_b: int, nc: int = 3) -> torch.Tensor:
+    """Sparse decode front half → (nc, p) uint8 symbols (nc: 3 channels,
+    or 6 byte planes when deep).  ``kcaps``: per plane, its value
+    capacity in symbols — 0 elides the plane (exact zeros), the full
+    dense capacity marks a dense plane (its value symbols are the plane;
+    its bitmap is never read)."""
     pp = _sparse_pp(p)
     dev = streams.device
-    coded = tuple(c for c in range(3) if kcaps[c] > 0)
+    coded = tuple(c for c in range(nc) if kcaps[c] > 0)
     na = len(coded)
     if na == 0:
-        return torch.zeros((3, p), dtype=torch.uint8, device=dev)
+        return torch.zeros((nc, p), dtype=torch.uint8, device=dev)
     dense_kcap = _segment_geometry(pp, s_seg)[1]
     dense = tuple(c for c in coded if kcaps[c] >= dense_kcap)
     sp = tuple(c for c in coded if c not in dense)
@@ -347,7 +333,7 @@ def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
     for c in coded:
         kr = kcaps[c] // NG
         nv = kr // s_seg
-        vf, vc = freq_table_device(hists[3 + c : 4 + c])
+        vf, vc = freq_table_device(hists[nc + c : nc + c + 1])
         v = decode_words(streams[row0 : row0 + nv], counts[row0 : row0 + nv],
                          vf, vc, s_seg=s_seg).reshape(kr, NG)
         row0 += nv
@@ -361,34 +347,35 @@ def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
         for i, c in enumerate(sp):
             planes[c] = sym_sp[i, :p]
     zero = torch.zeros((p,), dtype=torch.uint8, device=dev)
-    return torch.stack([planes.get(c, zero) for c in range(3)])
+    return torch.stack([planes.get(c, zero) for c in range(nc)])
 
 
-def _decode_chunk_sparse(streams, counts, hists, steps, *, wavelet_type,
-                         dims, padded, s_seg: int, kcaps, v_b: int,
-                         exact: bool = False):
-    """Full sparse decode: entropy decode + expand, then the inverse
-    transform over the coded planes only."""
+def _bands_sparse_phase15(coeffs, steps8, dzs8, *, padded, pp: int):
+    """rdo×sparse phase 1.5: per-band quantize → symbols zero-padded to
+    ``pp`` (3, pp) uint8 and their per-tile value rows."""
     p = padded[0] * padded[1] * padded[2]
-    symbols = _sparse_entropy_expand(streams, counts, hists, p=p, s_seg=s_seg,
-                                     kcaps=kcaps, v_b=v_b)
-    return decode_device(symbols, steps, wavelet_type=wavelet_type, dims=dims,
-                         padded=padded, exact=exact,
-                         active=tuple(c for c in range(3) if kcaps[c] > 0))
+    symbols = to_symbols(quantize_bands_inter(coeffs, steps8, dzs8))
+    symbols = torch.nn.functional.pad(symbols.reshape(3, p), (0, pp - p))
+    return symbols, tile_rows(symbols)
 
 
 @dataclass
 class DeviceChunk:
     """A compressed chunk held in device memory.
 
-    Dense: ``streams`` (3·n_seg, stream_rows(s_seg), 128) int32 padded
-    segment word streams; ``counts`` (3·n_seg,) int32 meaningful words
-    per segment; ``hists`` (3, 256) int64 stored (sampled) histograms.
+    Dense: ``streams`` (n·n_seg, stream_rows(s_seg), 128) int32 padded
+    segment word streams of its n planes (3 channels, or 6 byte planes
+    when ``deep``); ``counts`` (n·n_seg,) int32 meaningful words per
+    segment; ``hists`` (n, 256) int64 stored (sampled) histograms.
 
     Sparse (``sparse=True``): the segments of the coded planes — their
-    bitmap segments, then each one's value segments; ``hists`` (6, 256),
-    the 3 bitmap planes' then the 3 value planes'; ``kcaps`` the 3 value
-    capacities in symbols (0: elided plane)."""
+    bitmap segments, then each one's value segments; ``hists`` (2n, 256),
+    the n bitmap planes' then the n value planes'; ``kcaps`` the n value
+    capacities in symbols (0: elided plane).
+
+    ``band_steps``: (3, 8) int32 per-channel per-band steps of an
+    AnalyticalRDO chunk (None otherwise; ``quant_step`` is then their
+    minimum); ``levels``: the decomposition depth."""
 
     width: int
     height: int
@@ -399,12 +386,16 @@ class DeviceChunk:
     streams: torch.Tensor
     counts: torch.Tensor
     hists: torch.Tensor
+    band_steps: np.ndarray | None = None
+    deep: bool = False
+    levels: int = 1
     sparse: bool = False
     kcaps: tuple[int, ...] = ()
 
     @property
     def n_planes(self) -> int:
-        return 6 if self.sparse else 3
+        n = 6 if self.deep else 3
+        return 2 * n if self.sparse else n
 
     @property
     def n_segments(self) -> int:
@@ -419,11 +410,11 @@ class DeviceChunk:
 
     @classmethod
     def from_numpy(cls, *, width, height, frames, wavelet_type, quant_step,
-                   s_seg, streams, counts, hists, sparse=False, kcaps=(),
-                   device=None) -> "DeviceChunk":
+                   s_seg, streams, counts, hists, band_steps=None, deep=False,
+                   levels=1, sparse=False, kcaps=(), device=None
+                   ) -> "DeviceChunk":
         """A chunk from the fields of a JAX ``DeviceChunk`` given as numpy
-        arrays (a single-level chunk without rdo or deep symbols); tensors
-        go to ``device``."""
+        arrays; tensors go to ``device``."""
         dev = resolve_device(device)
         return cls(
             int(width), int(height), int(frames), WaveletType(int(wavelet_type)),
@@ -431,7 +422,9 @@ class DeviceChunk:
             torch.as_tensor(np.array(streams, np.int32), device=dev),
             torch.as_tensor(np.array(counts, np.int32), device=dev),
             torch.as_tensor(np.array(hists, np.int64), device=dev),
-            bool(sparse), tuple(int(k) for k in kcaps),
+            None if band_steps is None else np.array(band_steps, np.int32),
+            bool(deep), int(levels), bool(sparse),
+            tuple(int(k) for k in kcaps),
         )
 
     def to_numpy(self) -> dict:
@@ -445,14 +438,19 @@ class DeviceChunk:
             streams=self.streams.cpu().numpy().astype(np.int32),
             counts=self.counts.cpu().numpy().astype(np.int32),
             hists=self.hists.cpu().numpy().astype(np.uint32),
+            band_steps=(None if self.band_steps is None
+                        else np.array(self.band_steps, np.int32)),
+            deep=self.deep, levels=self.levels,
             sparse=self.sparse, kcaps=tuple(self.kcaps),
         )
 
 
 class Alc3Codec:
     """ALC3 chunk codec on one device (CUDA unless ``device`` says
-    otherwise), dense or, with ``sparse=True``, with sparse significance
-    coding.
+    otherwise): dense or, with ``sparse=True``, with sparse significance
+    coding; fixed-step, or AnalyticalRDO per-band steps (``rdo=True``);
+    8-bit or, with ``deep`` (the default at q=100), 16-bit symbols;
+    ``levels`` 1-4 of decomposition.
 
     >>> import numpy as np
     >>> rgb = np.zeros((2, 8, 8, 3), np.uint8)
@@ -476,29 +474,28 @@ class Alc3Codec:
             else WaveletType.from_name(wavelet))
         self.s_seg = int(s_seg)
         self.step = quality_to_step(self.quality)
-        deep = (self.quality >= 100) if deep is None else bool(deep)
-        if rdo and deep:
+        self.rdo = bool(rdo)
+        self.deep = (self.quality >= 100) if deep is None else bool(deep)
+        if self.rdo and self.deep:
             raise ValueError("rdo and deep modes are mutually exclusive")
-        if rdo and int(levels) != 1:
+        self.levels = int(levels)
+        if self.rdo and self.levels != 1:
             raise ValueError("rdo supports single-level decomposition only")
-        for mode, on in (("rdo", rdo), ("deep", deep),
-                         ("levels", int(levels) != 1)):
-            if on:
-                raise _unported(mode)
         self.sparse = bool(sparse)
         self.device = resolve_device(device)
         # the sparse encoder's caches, keyed by chunk geometry — both are
         # wire-visible, since they decide later chunks' capacities:
-        # value capacity rows per (wire planes, pp, s_seg), and the
-        # channels last found nonzero per (pp, s_seg)
+        # value capacity rows per (provided planes, wire planes, pp,
+        # s_seg), and the channels last found nonzero per (pp, s_seg)
         self._krs_cache: dict = {}
         self._active_cache: dict = {}
 
     # ── sparse encode ───────────────────────────────────────────
 
-    def _settle_krs(self, rows, wire_active, pp: int):
-        """Value capacity rows of the provided planes ``wire_active``,
-        given their value rows ``rows``; stores them in the capacity cache.
+    def _settle_krs(self, rows, wire_active, pp: int, wire_nc: int = 3):
+        """Value capacity rows of the provided planes ``wire_active`` (of
+        ``wire_nc`` wire planes), given their value rows ``rows``; stores
+        them in the capacity cache.
 
         The JAX package dispatches its phase 2 optimistically with the
         cached capacities and re-dispatches with larger ones where the
@@ -506,20 +503,21 @@ class Alc3Codec:
         cache write it makes: a cached bucket is kept while the rows fit,
         else every plane takes the larger of it and its own bucket.  A
         plane with no rows is elided (0), except the chunk's anchor
-        plane 0, which keeps the minimum bucket; a plane at or above
-        DENSE_ROW_FRAC of its rows is dense (the full capacity)."""
+        plane (wire plane 0), which keeps the minimum bucket; a plane at
+        or above DENSE_ROW_FRAC of its rows is dense (the full
+        capacity)."""
         max_nv = _segment_geometry(pp, self.s_seg)[0]
         dense_rows = max_nv * self.s_seg
 
         def bucket(r: int, w: int) -> int:
-            if r == 0 and w == 0:
+            if r == 0 and w % wire_nc == 0:
                 return DEFAULT_V_SEG * self.s_seg
             if r >= DENSE_ROW_FRAC * (pp // NG):
                 return dense_rows
             nv = _bucket_nv(r, self.s_seg, max_nv)
             return dense_rows if nv >= max_nv else nv * self.s_seg
 
-        key = (tuple(wire_active), pp, self.s_seg)
+        key = (tuple(wire_active), wire_nc, pp, self.s_seg)
         krs = self._krs_cache.get(key)
         if krs is None:
             krs = tuple(bucket(r, w) for r, w in zip(rows, wire_active))
@@ -531,8 +529,24 @@ class Alc3Codec:
         self._krs_cache[key] = krs
         return krs, dense_rows
 
+    def _sparse_phase2(self, symbols, trows, pp: int, rows, wire_active,
+                       wire_nc: int = 3):
+        """Capacities from the value ``rows`` (host ints), then the
+        compact + entropy stage: ``(streams, counts, hists, kcaps)`` with
+        kcaps in the full wire layout."""
+        krs, dense_rows = self._settle_krs(rows, wire_active, pp, wire_nc)
+        nb, _ = _segment_geometry(pp // 8, self.s_seg)
+        streams, counts, hists = _encode_chunk_sparse(
+            symbols, trows, pp=pp, s_seg=self.s_seg, krs=krs,
+            v_b=_pick_v_seg(nb), wire_active=wire_active, wire_nc=wire_nc,
+            dense=tuple(i for i, k in enumerate(krs) if k == dense_rows))
+        kcaps = [0] * wire_nc
+        for i, w in enumerate(wire_active):
+            kcaps[w] = krs[i] * NG
+        return streams, counts, hists, tuple(kcaps)
+
     def _encode_sparse(self, rgb, padded):
-        """Sparse encode of one chunk on the codec's device.
+        """Fixed-step sparse encode of one chunk on the codec's device.
 
         Phase 1 transforms only the channels the last chunk of this
         geometry needed (all three at first); one host read of the value
@@ -549,7 +563,7 @@ class Alc3Codec:
         def phase1(chans):
             sym, trows, flags = encode_sparse_phase1(
                 rgb, self.step, self.step, wavelet_type=self.wavelet_type,
-                padded=padded, pp=pp, active=chans)
+                padded=padded, pp=pp, levels=self.levels, active=chans)
             host = torch.cat([trows.sum(-1, dtype=torch.int64),
                               flags.to(torch.int64)]).tolist()
             return sym, trows, host[: len(chans)], host[len(chans):]
@@ -561,16 +575,29 @@ class Alc3Codec:
             active = needed
             symbols, trows, rows, _ = phase1(active)
         self._active_cache[akey] = needed
-        krs, dense_rows = self._settle_krs(rows, active, pp)
-        nb, _ = _segment_geometry(pp // 8, self.s_seg)
-        streams, counts, hists = _encode_chunk_sparse(
-            symbols, trows, pp=pp, s_seg=self.s_seg, krs=krs, v_b=_pick_v_seg(nb),
-            wire_active=active,
-            dense=tuple(i for i, k in enumerate(krs) if k == dense_rows))
-        kcaps = [0, 0, 0]
-        for i, w in enumerate(active):
-            kcaps[w] = krs[i] * NG
-        return streams, counts, hists, tuple(kcaps)
+        return self._sparse_phase2(symbols, trows, pp, rows, active)
+
+    def _encode_sparse_planes(self, symbols, trows, pp: int):
+        """Sparse phase 2 of a deep (6 byte planes) or rdo chunk: every
+        plane provided, no zero-channel cache."""
+        n = symbols.shape[0]
+        rows = trows.sum(-1, dtype=torch.int64).tolist()
+        return self._sparse_phase2(symbols, trows, pp, rows, tuple(range(n)),
+                                   wire_nc=n)
+
+    # ── encode / decode ─────────────────────────────────────────
+
+    def _rdo_steps(self, s1, s2, p: int):
+        """Per-band (steps, dead zones), each (3, 8) int32 numpy, from the
+        device moments (one host read)."""
+        s12 = torch.stack([s1, s2]).cpu().numpy()
+        rdo = AnalyticalRDO.with_quality(self.quality)
+        steps = np.empty((3, 8), np.int32)
+        dzs = np.empty((3, 8), np.int32)
+        for ch in range(3):
+            steps[ch], dzs[ch] = rdo.steps_from_moments(
+                p // 8, s12[0, ch], s12[1, ch])
+        return steps, dzs
 
     def encode(self, rgb) -> DeviceChunk:
         """Encode one (T, H, W, 3) uint8 chunk; accepts NumPy (uploaded
@@ -585,18 +612,48 @@ class Alc3Codec:
         if rgb.ndim != 4 or rgb.shape[-1] != 3:
             raise InvalidBufferSize(4, rgb.ndim)
         t, h, w, _ = rgb.shape
-        padded = padded_dims_levels(w, h, t, 1)
-        if self.sparse:
+        padded = padded_dims_levels(w, h, t, self.levels)
+        p = int(np.prod(padded))
+        pp = _sparse_pp(p)
+        step, band_steps, kcaps = self.step, None, ()
+        if self.rdo:
+            coeffs, s1, s2 = transform_moments_device(
+                rgb, wavelet_type=self.wavelet_type, padded=padded)
+            band_steps, dzs = self._rdo_steps(s1, s2, p)
+            step = int(band_steps.min())
+            steps8 = torch.as_tensor(band_steps, device=self.device)
+            dzs8 = torch.as_tensor(dzs, device=self.device)
+        stage = dict(wavelet_type=self.wavelet_type, padded=padded,
+                     levels=self.levels)
+        if self.sparse and (self.rdo or self.deep):
+            if self.rdo:
+                planes, trows = _bands_sparse_phase15(coeffs, steps8, dzs8,
+                                                      padded=padded, pp=pp)
+                del coeffs
+            else:
+                planes, trows = encode_deep_sparse_phase1(
+                    rgb, self.step, self.step, pp=pp, **stage)
+            streams, counts, hists, kcaps = self._encode_sparse_planes(
+                planes, trows, pp)
+        elif self.sparse:
             streams, counts, hists, kcaps = self._encode_sparse(rgb, padded)
-            return DeviceChunk(w, h, t, self.wavelet_type, self.step,
-                               self.s_seg, streams, counts, hists,
-                               sparse=True, kcaps=kcaps)
-        n_seg, _ = _segment_geometry(int(np.prod(padded)), self.s_seg)
-        streams, counts, hists = _encode_chunk(
-            rgb, self.step, self.step, wavelet_type=self.wavelet_type,
-            padded=padded, s_seg=self.s_seg, v_seg=_pick_v_seg(n_seg))
-        return DeviceChunk(w, h, t, self.wavelet_type, self.step, self.s_seg,
-                           streams, counts, hists)
+        else:
+            if self.rdo:
+                planes, hists = encode_bands_device(
+                    coeffs, steps8, dzs8, padded=padded,
+                    hist_stride=HIST_STRIDE)
+                del coeffs
+            else:
+                dev_stage = encode_deep_device if self.deep else encode_device
+                planes, hists = dev_stage(rgb, self.step, self.step,
+                                          hist_stride=HIST_STRIDE, **stage)
+            v_seg = _pick_v_seg(_segment_geometry(p, self.s_seg)[0])
+            streams, counts, hists = _entropy_encode(
+                planes, hists, s_seg=self.s_seg, v_seg=v_seg)
+        return DeviceChunk(w, h, t, self.wavelet_type, step, self.s_seg,
+                           streams, counts, hists, band_steps=band_steps,
+                           deep=self.deep, levels=self.levels,
+                           sparse=self.sparse, kcaps=kcaps)
 
     def decode(self, chunk: DeviceChunk, *, exact: bool = False,
                as_numpy: bool = False):
@@ -604,23 +661,50 @@ class Alc3Codec:
         device, or a numpy array with ``as_numpy``."""
         w, h, t = chunk.width, chunk.height, chunk.frames
         dev = chunk.streams.device
-        steps = torch.full((3,), chunk.quant_step, dtype=torch.int32, device=dev)
-        padded = padded_dims_levels(w, h, t, 1)
+        padded = padded_dims_levels(w, h, t, chunk.levels)
+        p = int(np.prod(padded))
         if chunk.sparse:
-            pp = _sparse_pp(int(np.prod(padded)))
-            nb, _ = _segment_geometry(pp // 8, chunk.s_seg)
-            rgb = _decode_chunk_sparse(
-                chunk.streams, chunk.counts, chunk.hists, steps,
-                wavelet_type=chunk.wavelet_type, dims=(w, h, t),
-                padded=padded, s_seg=chunk.s_seg, kcaps=chunk.kcaps,
-                v_b=_pick_v_seg(nb), exact=exact)
-            return rgb.cpu().numpy() if as_numpy else rgb
-        rgb = _decode_chunk(
-            chunk.streams, chunk.counts, chunk.hists, steps,
-            wavelet_type=chunk.wavelet_type, dims=(w, h, t), padded=padded,
-            s_seg=chunk.s_seg, v_seg=_pick_v_seg(chunk.n_segments),
-            exact=exact)
+            nb, _ = _segment_geometry(_sparse_pp(p) // 8, chunk.s_seg)
+            planes = _sparse_entropy_expand(
+                chunk.streams, chunk.counts, chunk.hists, p=p,
+                s_seg=chunk.s_seg, kcaps=chunk.kcaps, v_b=_pick_v_seg(nb),
+                nc=6 if chunk.deep else 3)
+        else:
+            planes = _entropy_decode(
+                chunk.streams, chunk.counts, chunk.hists, padded=padded,
+                s_seg=chunk.s_seg, v_seg=_pick_v_seg(chunk.n_segments))
+        stage = dict(wavelet_type=chunk.wavelet_type, dims=(w, h, t),
+                     padded=padded, exact=exact)
+        steps = torch.full((3,), chunk.quant_step, dtype=torch.int32,
+                           device=dev)
+        if chunk.band_steps is not None:
+            steps8 = torch.as_tensor(np.asarray(chunk.band_steps, np.int32),
+                                     device=dev)
+            rgb = decode_bands_device(planes, steps8, **stage)
+        elif chunk.deep:
+            rgb = decode_deep_device(planes, steps, levels=chunk.levels,
+                                     **stage)
+        else:
+            # an elided sparse plane (kcap 0) carries no nonzero symbol
+            active = (tuple(c for c in range(3) if chunk.kcaps[c] > 0)
+                      if chunk.sparse else None)
+            rgb = decode_device(planes, steps, levels=chunk.levels,
+                                active=active, **stage)
         return rgb.cpu().numpy() if as_numpy else rgb
+
+    def encode_batch(self, rgb_batch, **kwargs):
+        """Not ported yet (ROADMAP Queue 1 item 11): encode each chunk
+        with :meth:`encode`."""
+        raise NotImplementedError(
+            "Alc3Codec.encode_batch is not ported yet (ROADMAP Queue 1 "
+            "item 11); encode each chunk with encode()")
+
+    def decode_batch(self, chunks, **kwargs):
+        """Not ported yet (ROADMAP Queue 1 item 11): decode each chunk
+        with :meth:`decode`."""
+        raise NotImplementedError(
+            "Alc3Codec.decode_batch is not ported yet (ROADMAP Queue 1 "
+            "item 11); decode each chunk with decode()")
 
     # ── container serialization (host interchange) ──────────────
 
@@ -633,7 +717,8 @@ class Alc3Codec:
         if not chunks:
             raise InvalidBitstream("cannot serialize an empty chunk list")
         c0 = chunks[0]
-        p = int(np.prod(padded_dims_levels(c0.width, c0.height, c0.frames, 1)))
+        p = int(np.prod(padded_dims_levels(c0.width, c0.height, c0.frames,
+                                           c0.levels)))
         buf = bytearray(_MAGIC3)
         buf.append(_VERSION3)
         buf.append(int(c0.wavelet_type))
@@ -645,10 +730,14 @@ class Alc3Codec:
             counts = ck.counts.cpu().numpy().astype(np.int64)
             streams = ck.streams.cpu().numpy()
             hists = ck.hists.cpu().numpy().astype(np.uint32)
-            buf.append(_FLAG_SPARSE if ck.sparse else 0)  # single level
-            # per plane: (segments, num_symbols).  Sparse: 3 bitmap planes
-            # of pp/8 symbols, then 3 value planes of kcap symbols; an
-            # elided plane (kcap 0) has no segments in either.
+            flags = _FLAG_RDO if ck.band_steps is not None else 0
+            flags |= _FLAG_DEEP if ck.deep else 0
+            flags |= (ck.levels - 1) << 2  # bits 2-3: decomposition depth
+            flags |= _FLAG_SPARSE if ck.sparse else 0
+            buf.append(flags)
+            # per plane: (segments, num_symbols).  Sparse: the bitmap
+            # planes of pp/8 symbols, then the value planes of kcap
+            # symbols; an elided plane (kcap 0) has no segments in either.
             if ck.sparse:
                 pp = _sparse_pp(p)
                 nb, _ = _segment_geometry(pp // 8, ck.s_seg)
@@ -668,6 +757,10 @@ class Alc3Codec:
                     histogram=hists[ch],
                 ).to_bytes()
                 buf += ch_counts.astype("<u4").tobytes()
+                # the band steps are per channel: they ride the first 3
+                # plane sections (sparse value planes carry none)
+                if ck.band_steps is not None and ch < 3:
+                    buf += np.asarray(ck.band_steps[ch], "<i4").tobytes()
                 for s in range(n_seg):
                     words = streams[row0 + s].reshape(-1)[: ch_counts[s]]
                     payload += words.astype("<u2").tobytes()
@@ -680,9 +773,9 @@ class Alc3Codec:
         """Parse an ALC3 container and stage its chunks on ``device``.
 
         Returns ``(codec, chunks)``; the codec carries the container's
-        quality (recovered from the stored step) and wavelet.  Raises
-        :class:`InvalidBitstream` for malformed data and
-        ``NotImplementedError`` for chunks of an unported mode."""
+        quality (recovered from the stored step — best effort for rdo
+        chunks, whose stored step is the smallest band step), wavelet and
+        modes.  Raises :class:`InvalidBitstream` for malformed data."""
         data = bytes(data)
         if len(data) < 30:
             raise InvalidBitstream(f"ALC3 data too short: {len(data)} bytes")
@@ -697,23 +790,33 @@ class Alc3Codec:
         dev = resolve_device(device)
         w_rows = stream_rows(s_seg)
 
+        def read_steps(off: int, steps: np.ndarray, ch: int) -> int:
+            if off + 32 > len(data):
+                raise InvalidBitstream("truncated ALC3 header section")
+            steps[ch] = np.frombuffer(data, "<i4", 8, off)
+            if (steps[ch] < 1).any():
+                raise InvalidBitstream("non-positive RDO band step")
+            return off + 32
+
         off = 30
-        metas = []  # per chunk: (step, hists, counts per plane, sparse, kcaps)
+        metas = []  # per chunk: (step, hists, counts per plane, DeviceChunk
+        #             keyword fields)
         seg = s_seg * NG
         for _ in range(n_chunks):
             if off + 1 > len(data):
                 raise InvalidBitstream("truncated ALC3 chunk flags")
             flags = data[off]
             off += 1
-            if flags & _FLAG_RDO and flags & _FLAG_DEEP:
-                raise InvalidBitstream("rdo and deep flags are exclusive")
-            for mode, bit in (("rdo", _FLAG_RDO), ("deep", _FLAG_DEEP),
-                              ("levels", 12)):
-                if flags & bit:
-                    raise _unported(mode)
+            deep = bool(flags & _FLAG_DEEP)
             sparse = bool(flags & _FLAG_SPARSE)
-            p = int(np.prod(padded_dims_levels(w, h, f, 1)))
-            n_planes = 6 if sparse else 3
+            levels = ((flags >> 2) & 3) + 1
+            p = int(np.prod(padded_dims_levels(w, h, f, levels)))
+            nbm = 6 if deep else 3  # byte planes (bitmap planes if sparse)
+            n_planes = 2 * nbm if sparse else nbm
+            band_steps = (np.zeros((3, 8), np.int32) if flags & _FLAG_RDO
+                          else None)
+            if band_steps is not None and deep:
+                raise InvalidBitstream("rdo and deep flags are exclusive")
             hists = np.zeros((n_planes, 256), np.uint32)
             counts_list, kcaps, bm_elided = [], [], []
             step = 1
@@ -724,22 +827,26 @@ class Alc3Codec:
                 off += 1040
                 hists[ch] = hdr.histogram
                 step = hdr.quant_step
+                has_steps = band_steps is not None and ch < 3
                 if sparse and hdr.num_symbols == 0:
                     # an elided plane: no segments; its bitmap and value
-                    # sections are elided together
-                    if ch >= 3 and not bm_elided[ch - 3]:
+                    # sections are elided together.  The band steps still
+                    # ride an elided bitmap section.
+                    if ch >= nbm and not bm_elided[ch - nbm]:
                         raise InvalidBitstream(
                             "sparse value capacity 0 for a coded bitmap")
                     if hdr.compressed_len:
                         raise InvalidBitstream(
                             "elided plane with nonzero payload")
-                    if ch >= 3:
+                    if ch >= nbm:
                         kcaps.append(0)
                     else:
                         bm_elided.append(True)
                     counts_list.append(np.zeros((0,), np.int64))
+                    if has_steps:
+                        off = read_steps(off, band_steps, ch)
                     continue
-                if sparse and ch >= 3:
+                if sparse and ch >= nbm:
                     # a value plane's capacity comes from its own header
                     plane_sym = hdr.num_symbols
                     if plane_sym % seg:
@@ -751,7 +858,7 @@ class Alc3Codec:
                     if plane_sym > _segment_geometry(_sparse_pp(p), s_seg)[1]:
                         raise InvalidBitstream(
                             "sparse value capacity exceeds the plane size")
-                    if bm_elided[ch - 3]:
+                    if bm_elided[ch - nbm]:
                         raise InvalidBitstream(
                             "coded value plane for an elided bitmap")
                     kcaps.append(plane_sym)
@@ -771,20 +878,24 @@ class Alc3Codec:
                 if not sparse and ns != n_seg:
                     raise InvalidBitstream(
                         f"{n_seg} segments cannot cover {p} symbols")
-                if off + 4 * ns > len(data):
+                if off + 4 * ns + (32 if has_steps else 0) > len(data):
                     raise InvalidBitstream("truncated ALC3 header section")
                 ch_counts = np.frombuffer(data, "<u4", ns, off).astype(np.int64)
                 off += 4 * ns
+                if has_steps:
+                    off = read_steps(off, band_steps, ch)
                 if int(ch_counts.sum()) * 2 != hdr.compressed_len:
                     raise InvalidBitstream("segment counts disagree with header")
                 counts_list.append(ch_counts)
-            metas.append((step, hists, counts_list, sparse, tuple(kcaps)))
+            metas.append((step, hists, counts_list, dict(
+                band_steps=band_steps, deep=deep, levels=levels,
+                sparse=sparse, kcaps=tuple(kcaps))))
 
         chunks = []
         # every coded segment carries at least the 2·NG state-flush words
         # and at most s_seg steps' refills plus the flush
         segment_cap = (s_seg + 2) * NG
-        for step, hists, counts_list, sparse, kcaps in metas:
+        for step, hists, counts_list, fields in metas:
             flat_counts = np.concatenate(counts_list)
             if flat_counts.size == 0:
                 raise InvalidBitstream("ALC3 chunk with no segments")
@@ -806,12 +917,14 @@ class Alc3Codec:
                 torch.as_tensor(streams.reshape(n_rows, w_rows, NG), device=dev),
                 torch.as_tensor(flat_counts.astype(np.int32), device=dev),
                 torch.as_tensor(hists.astype(np.int64), device=dev),
-                sparse, kcaps,
-            ))
+                **fields))
         # recover quality from the step map step = max(64 - q*63/100, 1)
         step0 = metas[0][0] if metas else 1
         quality = next(
             (q for q in range(100, -1, -1) if quality_to_step(q) == step0), 90)
+        f0 = metas[0][3] if metas else {}
         codec = cls(quality=quality, wavelet=wavelet_type, s_seg=int(s_seg),
-                    deep=False, sparse=bool(metas) and metas[0][3], device=dev)
+                    rdo=f0.get("band_steps") is not None,
+                    deep=f0.get("deep", False), levels=f0.get("levels", 1),
+                    sparse=f0.get("sparse", False), device=dev)
         return codec, chunks

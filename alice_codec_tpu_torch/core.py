@@ -1,8 +1,9 @@
 """Core enums and shape rules of the ALICE codec (PyTorch port).
 
-A copy of the pieces of ``alice_codec_tpu/core.py`` the dense ALC3 path
+A copy of the pieces of ``alice_codec_tpu/core.py`` the ALC3 codec
 needs, kept here so the port never imports the JAX package:
 
+* ``SubBand3D``      — reference src/lib.rs:113-160
 * ``WaveletType``    — reference src/pipeline.rs:34-62
 * quality → quantization-step mapping — reference src/pipeline.rs:452-457
 * even-dimension padding rules — reference src/pipeline.rs:437-440, 547-550
@@ -17,6 +18,43 @@ from .errors import DimensionOverflow, InvalidBitstream
 #: Maximum value of the reference's usize (64-bit) used by the checked
 #: dimension multiplication (reference: src/pipeline.rs:67-71).
 _USIZE_MAX = (1 << 64) - 1
+
+
+class SubBand3D(enum.IntEnum):
+    """Sub-band index for a single-level 3D wavelet decomposition.
+
+    Reference: src/lib.rs:113-132.  Letters are (y, x, t) low/high.
+    """
+
+    LLL = 0  # static background, highest compression
+    LLH = 1  # slow temporal change
+    LHL = 2  # horizontal edges
+    LHH = 3  # horizontal + temporal
+    HLL = 4  # vertical edges
+    HLH = 5  # vertical + temporal
+    HHL = 6  # diagonal edges
+    HHH = 7  # highest frequency noise
+
+    @property
+    def is_temporal_high(self) -> bool:
+        """True if this sub-band contains temporal high-frequency (motion).
+
+        Reference: src/lib.rs:138-140.
+        """
+        return self in (SubBand3D.LLH, SubBand3D.LHH, SubBand3D.HLH, SubBand3D.HHH)
+
+    @property
+    def is_dc(self) -> bool:
+        """True if this is the lowest-frequency sub-band (reference: src/lib.rs:145-147)."""
+        return self is SubBand3D.LLL
+
+    @property
+    def quant_strength(self) -> int:
+        """Recommended quantization strength multiplier (reference: src/lib.rs:152-159)."""
+        return _QUANT_STRENGTH[int(self)]
+
+
+_QUANT_STRENGTH = (1, 2, 2, 4, 2, 4, 4, 8)
 
 
 class WaveletType(enum.IntEnum):

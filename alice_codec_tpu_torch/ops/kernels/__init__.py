@@ -8,7 +8,7 @@ the CPU path.
 
 from __future__ import annotations
 
-from .lift import forward_quant, inverse_dequant
+from .lift import forward_3d, forward_quant, inverse_3d, inverse_dequant
 from .rans3 import decode_words, encode_words
 from .sparse import compact, expand
 
@@ -21,6 +21,8 @@ WRAPPERS = {
     "inverse_dequant": inverse_dequant,
     "compact": compact,
     "expand": expand,
+    "forward_3d": forward_3d,
+    "inverse_3d": inverse_3d,
 }
 
 

@@ -1,20 +1,27 @@
-"""Fused level-0 3D lifting + (de)quantization: the port of
+"""Level-0 3D lifting, plain or fused with (de)quantization: the port of
 ``alice_codec_tpu/ops/pallas/lift_kernels.py`` (forward_quant_pallas,
-inverse_dequant_pallas).
+inverse_dequant_pallas; forward_3d_pallas, inverse_3d_pallas).
 
 Each function has two forms in this module:
 
 * the plain PyTorch version (``*_plain``): the same integer arithmetic as
   the TPU kernels, as whole-tensor ops — what the CPU runs, and what the
   CUDA kernel is held against on the card;
-* the wrapper (``forward_quant`` / ``inverse_dequant``): takes the plain
-  version for a CPU tensor and launches the hand-written Hopper kernel
-  (``csrc/lift.cu``) for a CUDA tensor — never the plain version on the
-  card.  Each launch adds one to the wrapper's ``launches`` count.
+* the wrapper (``forward_quant`` / ``inverse_dequant`` / ``forward_3d`` /
+  ``inverse_3d``): takes the plain version for a CPU tensor and launches
+  the hand-written Hopper kernel (``csrc/lift.cu``) for a CUDA tensor —
+  never the plain version on the card.  Each launch adds one to the
+  wrapper's ``launches`` count.
 
-Storage points follow the TPU kernels: int32 inside a pass, int16 between
-the spatial and temporal passes (``o_ref.astype`` at lift_kernels.py:135
-and :193), so an out-of-range inverse intermediate wraps there.
+Storage points follow the TPU kernels: int32 inside a pass; the fused
+kernels store int16 between the spatial and temporal passes
+(``o_ref.astype`` at lift_kernels.py:135 and :193), so an out-of-range
+inverse intermediate wraps there.  On frames of more than
+``_FRAME_BYTES`` at int16 (4K) the TPU kernels split the spatial pass
+into a W pass and an H pass with an int16 store between them
+(lift_kernels.py:267-291); the fused kernels here store int16 there too
+on those frames (:func:`split_frame`).  The plain 3D lift (the rdo, deep
+and multi-level modes' level 0) stores int32 throughout and never wraps.
 """
 
 from __future__ import annotations
@@ -25,11 +32,15 @@ import torch
 
 from ... import _build
 from ..quant import from_symbols, quantize, to_symbols
-from ..wavelet import lift_axis, lift_steps
+from ..wavelet import forward_3d_inter, inverse_3d_inter, lift_axis, lift_steps
 
 __all__ = ["forward_quant", "inverse_dequant", "forward_quant_plain",
-           "inverse_dequant_plain"]
+           "inverse_dequant_plain", "forward_3d", "inverse_3d",
+           "forward_3d_plain", "inverse_3d_plain"]
 
+#: frame budget of the TPU's one-block spatial kernel (lift_kernels.py
+#: _FRAME_BYTES); larger int16 frames take its split spatial path
+_FRAME_BYTES = 9 * 1024 * 1024
 #: shared memory a block may use on Hopper (bytes)
 _SMEM_LIMIT = 232448
 _STRIP = 16           # columns per column-lift block (csrc/lift.cu kStrip)
@@ -51,18 +62,31 @@ def _check_volume(x: torch.Tensor, dtype, what: str) -> None:
                          f"{tuple(x.shape[1:])}")
 
 
+def split_frame(h: int, w: int) -> bool:
+    """Whether the TPU kernels split the spatial pass of an (h, w) int16
+    frame, storing int16 between its W and H passes."""
+    return h * w * 2 > _FRAME_BYTES
+
+
+def _int16(x: torch.Tensor) -> torch.Tensor:
+    """The int16 truncating store of an int32 tensor, read back as int32."""
+    return x.to(torch.int16).to(torch.int32)
+
+
 # ── plain versions ──────────────────────────────────────────────
 
 
 def forward_quant_plain(volume, wavelet, step, dead_zone) -> torch.Tensor:
     """(C, T, H, W) int16 → uint8 symbols: W then H lift (int32, stored
-    int16), T lift, dead-zone quantize, zigzag."""
+    int16; and between them on a split frame), T lift, dead-zone
+    quantize, zigzag."""
     _check_volume(volume, torch.int16, "forward_quant")
     c = volume.shape[0]
     steps = lift_steps(wavelet)
-    x = volume.to(torch.int32)
-    x = lift_axis(lift_axis(x, steps, -1), steps, -2)
-    x = lift_axis(x.to(torch.int16).to(torch.int32), steps, -3)
+    x = lift_axis(volume.to(torch.int32), steps, -1)
+    if split_frame(*volume.shape[2:]):
+        x = _int16(x)
+    x = lift_axis(_int16(lift_axis(x, steps, -2)), steps, -3)
     s = _per_channel(step, c, volume.device).view(c, 1, 1, 1)
     dz = _per_channel(dead_zone, c, volume.device).view(c, 1, 1, 1)
     return to_symbols(quantize(x, s, dz))
@@ -70,15 +94,30 @@ def forward_quant_plain(volume, wavelet, step, dead_zone) -> torch.Tensor:
 
 def inverse_dequant_plain(symbols, wavelet, step, *, exact=False) -> torch.Tensor:
     """(C, T, H, W) uint8 symbols → int16 volume: un-zigzag, dequantize,
-    inverse T lift (stored int16), then inverse H and W lifts."""
+    inverse T lift (stored int16), then inverse H and W lifts (stored
+    int16 between them on a split frame)."""
     _check_volume(symbols, torch.uint8, "inverse_dequant")
     c = symbols.shape[0]
     steps = lift_steps(wavelet, inverse=True, exact=exact)
     s = _per_channel(step, c, symbols.device).view(c, 1, 1, 1)
     x = lift_axis(from_symbols(symbols) * s, steps, -3)
-    x = x.to(torch.int16).to(torch.int32)
-    x = lift_axis(lift_axis(x, steps, -2), steps, -1)
-    return x.to(torch.int16)
+    x = lift_axis(_int16(x), steps, -2)
+    if split_frame(*symbols.shape[2:]):
+        x = _int16(x)
+    return lift_axis(x, steps, -1).to(torch.int16)
+
+
+def forward_3d_plain(volume, wavelet) -> torch.Tensor:
+    """(C, T, H, W) int32 → int32 coefficients: W, then H, then T lift."""
+    _check_volume(volume, torch.int32, "forward_3d")
+    return forward_3d_inter(volume, wavelet)
+
+
+def inverse_3d_plain(coeffs, wavelet, *, exact=False) -> torch.Tensor:
+    """(C, T, H, W) int32 coefficients → int32 volume: T, then H, then W
+    inverse lift (compat ±1 replay, or exact undo)."""
+    _check_volume(coeffs, torch.int32, "inverse_3d")
+    return inverse_3d_inter(coeffs, wavelet, exact=exact)
 
 
 # ── CUDA launches ───────────────────────────────────────────────
@@ -89,11 +128,15 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_alc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.alc_forward_quant.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                          p, p, p]
+                                          p, p, i, p]
         lib.alc_forward_quant.restype = i
         lib.alc_inverse_dequant.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                            p, p, i, p]
+                                            p, p, i, i, p]
         lib.alc_inverse_dequant.restype = i
+        lib.alc_forward_3d.argtypes = [p, p, i, i, i, i, i, p, p, p]
+        lib.alc_forward_3d.restype = i
+        lib.alc_inverse_3d.argtypes = [p, p, i, i, i, i, i, p, p, i, p]
+        lib.alc_inverse_3d.restype = i
         lib._alc_typed = True
     return lib
 
@@ -112,8 +155,9 @@ def _check_cuda_shape(x: torch.Tensor) -> None:
         if b > _SMEM_LIMIT:
             raise ValueError(f"{what} pass needs {b} B of shared memory for "
                              f"shape {tuple(x.shape)} (limit {_SMEM_LIMIT})")
-    if c * t > 65535 or c > 65535:
-        raise ValueError(f"C·T = {c * t} exceeds the grid limit")
+    if c * t > 65535 or c > 65535 or c * t * h > 2**31 - 1:
+        raise ValueError(f"C·T = {c * t} (C·T·H = {c * t * h}) exceeds "
+                         f"the grid limit")
 
 
 def _forward_quant_cuda(volume, wavelet, step, dead_zone):
@@ -123,14 +167,16 @@ def _forward_quant_cuda(volume, wavelet, step, dead_zone):
     c, t, h, w = vol.shape
     s = _per_channel(step, c, vol.device)
     dz = _per_channel(dead_zone, c, vol.device)
-    tmp32 = torch.empty(vol.shape, dtype=torch.int32, device=vol.device)
+    split = split_frame(h, w)
+    tmp32 = torch.empty(0 if split else vol.shape, dtype=torch.int32,
+                        device=vol.device)
     tmp16 = torch.empty_like(vol)
     out = torch.empty(vol.shape, dtype=torch.uint8, device=vol.device)
     n, coeff, predict = _step_arrays(lift_steps(wavelet))
     _build.check(_lib().alc_forward_quant(
         vol.data_ptr(), tmp32.data_ptr(), tmp16.data_ptr(), out.data_ptr(),
         s.data_ptr(), dz.data_ptr(), c, t, h, w, n,
-        ctypes.addressof(coeff), ctypes.addressof(predict),
+        ctypes.addressof(coeff), ctypes.addressof(predict), int(split),
         torch.cuda.current_stream(vol.device).cuda_stream),
         "forward_quant")
     forward_quant.launches += 1
@@ -143,8 +189,10 @@ def _inverse_dequant_cuda(symbols, wavelet, step, exact):
     sym = symbols.contiguous()
     c, t, h, w = sym.shape
     s = _per_channel(step, c, sym.device)
+    split = split_frame(h, w)
     tmp16 = torch.empty(sym.shape, dtype=torch.int16, device=sym.device)
-    tmp32 = torch.empty(sym.shape, dtype=torch.int32, device=sym.device)
+    tmp32 = torch.empty(0 if split else sym.shape, dtype=torch.int32,
+                        device=sym.device)
     out = torch.empty_like(tmp16)
     n, coeff, predict = _step_arrays(
         lift_steps(wavelet, inverse=True, exact=exact))
@@ -152,9 +200,42 @@ def _inverse_dequant_cuda(symbols, wavelet, step, exact):
         sym.data_ptr(), tmp16.data_ptr(), tmp32.data_ptr(), out.data_ptr(),
         s.data_ptr(), c, t, h, w, n,
         ctypes.addressof(coeff), ctypes.addressof(predict), int(exact),
-        torch.cuda.current_stream(sym.device).cuda_stream),
+        int(split), torch.cuda.current_stream(sym.device).cuda_stream),
         "inverse_dequant")
     inverse_dequant.launches += 1
+    return out
+
+
+def _forward_3d_cuda(volume, wavelet):
+    _check_volume(volume, torch.int32, "forward_3d")
+    _check_cuda_shape(volume)
+    vol = volume.contiguous()
+    c, t, h, w = vol.shape
+    out = torch.empty_like(vol)
+    n, coeff, predict = _step_arrays(lift_steps(wavelet))
+    _build.check(_lib().alc_forward_3d(
+        vol.data_ptr(), out.data_ptr(), c, t, h, w, n,
+        ctypes.addressof(coeff), ctypes.addressof(predict),
+        torch.cuda.current_stream(vol.device).cuda_stream),
+        "forward_3d")
+    forward_3d.launches += 1
+    return out
+
+
+def _inverse_3d_cuda(coeffs, wavelet, exact):
+    _check_volume(coeffs, torch.int32, "inverse_3d")
+    _check_cuda_shape(coeffs)
+    vol = coeffs.contiguous()
+    c, t, h, w = vol.shape
+    out = torch.empty_like(vol)
+    n, coeff, predict = _step_arrays(
+        lift_steps(wavelet, inverse=True, exact=exact))
+    _build.check(_lib().alc_inverse_3d(
+        vol.data_ptr(), out.data_ptr(), c, t, h, w, n,
+        ctypes.addressof(coeff), ctypes.addressof(predict), int(exact),
+        torch.cuda.current_stream(vol.device).cuda_stream),
+        "inverse_3d")
+    inverse_3d.launches += 1
     return out
 
 
@@ -184,5 +265,29 @@ def inverse_dequant(symbols: torch.Tensor, wavelet, step, *,
     raise ValueError(f"inverse_dequant: unsupported device {symbols.device}")
 
 
+def forward_3d(volume: torch.Tensor, wavelet) -> torch.Tensor:
+    """Plain level-0 interleaved 3D forward lift (W, then H, then T):
+    (C, T, H, W) int32 (T, H, W even) → int32 coefficients."""
+    if volume.device.type == "cpu":
+        return forward_3d_plain(volume, wavelet)
+    if volume.is_cuda:
+        return _forward_3d_cuda(volume, wavelet)
+    raise ValueError(f"forward_3d: unsupported device {volume.device}")
+
+
+def inverse_3d(coeffs: torch.Tensor, wavelet, *, exact: bool = False
+               ) -> torch.Tensor:
+    """Plain level-0 interleaved 3D inverse lift (T, then H, then W;
+    compat ±1 replay, or exact undo with ``exact=True``): (C, T, H, W)
+    int32 → int32."""
+    if coeffs.device.type == "cpu":
+        return inverse_3d_plain(coeffs, wavelet, exact=exact)
+    if coeffs.is_cuda:
+        return _inverse_3d_cuda(coeffs, wavelet, exact)
+    raise ValueError(f"inverse_3d: unsupported device {coeffs.device}")
+
+
 forward_quant.launches = 0
 inverse_dequant.launches = 0
+forward_3d.launches = 0
+inverse_3d.launches = 0

@@ -1,13 +1,32 @@
-"""Dead-zone quantization, zigzag symbols and histograms (PyTorch port
-of the device primitives of ``alice_codec_tpu/ops/quant.py``;
-reference src/quant.rs:89-110, 547-600)."""
+"""Dead-zone quantization, zigzag symbols, histograms and the
+closed-form RDO (PyTorch port of ``alice_codec_tpu/ops/quant.py``;
+reference src/quant.rs:89-110, 377-505, 547-600).
+
+Device functions take tensors; :class:`AnalyticalRDO` is host float
+code, a verbatim copy of the JAX package's, so both packages pick the
+same per-band steps from the same moments.
+
+Per-band functions work on the INTERLEAVED single-level layout: the band
+of a coefficient is its index parity (bit y = h&1, x = w&1, t = t&1,
+index ``y·4 + x·2 + t`` — :class:`~..core.SubBand3D` order).  A
+``(..., T, H, W)`` volume viewed as ``(..., T/2, 2, H/2, 2, W/2, 2)``
+puts the parities on their own axes, so per-band values broadcast with
+no mask and no gather.
+"""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
+from ..core import SubBand3D
+
 __all__ = ["quantize", "dequantize", "to_symbols", "from_symbols",
-           "build_histogram"]
+           "to_symbols16", "from_symbols16", "build_histogram",
+           "band_index_inter", "quantize_bands_inter",
+           "dequantize_bands_inter", "band_moments_inter", "AnalyticalRDO"]
 
 
 def quantize(values: torch.Tensor, step, dead_zone) -> torch.Tensor:
@@ -15,7 +34,9 @@ def quantize(values: torch.Tensor, step, dead_zone) -> torch.Tensor:
 
     values in (-dead_zone, dead_zone) → 0; otherwise
     ``sign(v) * ((|v| - dead_zone/2) // step)`` (non-negative numerator,
-    so floor equals the reference's truncation)."""
+    so floor equals the reference's truncation).  ``step`` and
+    ``dead_zone``: scalars or int32 tensors that broadcast against
+    ``values`` (per channel, or per element)."""
     v = values.to(torch.int32)
     av = v.abs()
     q = torch.div(av - (dead_zone >> 1), step, rounding_mode="floor")
@@ -41,7 +62,149 @@ def from_symbols(symbols: torch.Tensor) -> torch.Tensor:
     return torch.where(s % 2 == 1, (s + 1) // 2, -(s // 2))
 
 
+def to_symbols16(coeffs: torch.Tensor) -> torch.Tensor:
+    """16-bit zigzag (ALC3 deep mode): :func:`to_symbols` without the u8
+    wrap, so any |q| ≤ 32767 survives.  Returns int32 in [0, 65535]."""
+    c = coeffs.to(torch.int32)
+    s = torch.where(c > 0, 2 * c - 1, -2 * c)
+    return s & 0xFFFF
+
+
+def from_symbols16(symbols: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_symbols16` → int32."""
+    return from_symbols(symbols)
+
+
 def build_histogram(symbols: torch.Tensor) -> torch.Tensor:
     """256-bin histogram of byte symbols over all elements, int64 (the
     JAX package returns uint32; the counts are equal)."""
     return torch.bincount(symbols.reshape(-1).to(torch.int64), minlength=256)
+
+
+# ── per-band primitives (AnalyticalRDO's device half) ───────────
+
+
+def band_index_inter(vol_shape) -> torch.Tensor:
+    """Per-element SubBand3D index of a (T, H, W) interleaved volume:
+    ``(h&1)·4 + (w&1)·2 + (t&1)``, int32."""
+    t, h, w = vol_shape[-3:]
+    it = torch.arange(t, dtype=torch.int32).view(t, 1, 1) & 1
+    ih = torch.arange(h, dtype=torch.int32).view(1, h, 1) & 1
+    iw = torch.arange(w, dtype=torch.int32).view(1, 1, w) & 1
+    return (ih * 4 + iw * 2 + it).expand(t, h, w).contiguous()
+
+
+def _parity_view(x: torch.Tensor) -> torch.Tensor:
+    """(..., T, H, W) → (..., T/2, 2, H/2, 2, W/2, 2), a view."""
+    t, h, w = x.shape[-3:]
+    return x.reshape(*x.shape[:-3], t // 2, 2, h // 2, 2, w // 2, 2)
+
+
+def _band_values(values8, like: torch.Tensor) -> torch.Tensor:
+    """(..., 8) per-band int32 values (SubBand3D order) → a tensor that
+    broadcasts against ``_parity_view(like)``: (..., 1, 2t, 1, 2y, 1, 2x)."""
+    v = torch.as_tensor(values8, dtype=torch.int32, device=like.device)
+    lead = v.shape[:-1]
+    v = v.reshape(*lead, 2, 2, 2)            # (..., y, x, t)
+    v = v.movedim(-1, -3)                    # (..., t, y, x)
+    return v.reshape(*lead, 1, 2, 1, 2, 1, 2)
+
+
+def quantize_bands_inter(coeffs: torch.Tensor, steps8, dead_zones8
+                         ) -> torch.Tensor:
+    """Dead-zone quantize an interleaved (..., T, H, W) volume with
+    per-band ``steps8`` / ``dead_zones8`` (..., 8) → int32 (the JAX
+    package's quantize_bands_inter)."""
+    q = quantize(_parity_view(coeffs), _band_values(steps8, coeffs),
+                 _band_values(dead_zones8, coeffs))
+    return q.reshape(coeffs.shape)
+
+
+def dequantize_bands_inter(qcoeffs: torch.Tensor, steps8) -> torch.Tensor:
+    """Inverse of :func:`quantize_bands_inter`: per-band ``q · step``."""
+    x = _parity_view(qcoeffs.to(torch.int32)) * _band_values(steps8, qcoeffs)
+    return x.reshape(qcoeffs.shape)
+
+
+def band_moments_inter(coeffs: torch.Tensor):
+    """Exact per-band integer moments of an interleaved (..., T, H, W)
+    volume: ``(s1, s2)``, each (..., 8) int64 — the sum and the sum of
+    squares of each band (order-independent integer sums, so equal to the
+    JAX package's masked sums)."""
+    lead = coeffs.shape[:-3]
+    c = _parity_view(coeffs).to(torch.int64)
+    axes = (-6, -4, -2)
+    s1 = c.sum(dim=axes)                      # (..., t, y, x)
+    s2 = (c * c).sum(dim=axes)
+    s1 = s1.movedim(-3, -1).reshape(*lead, 8)  # (..., y, x, t)
+    s2 = s2.movedim(-3, -1).reshape(*lead, 8)
+    return s1, s2
+
+
+# ── host RDO (a verbatim copy of the JAX package's) ─────────────
+
+
+class AnalyticalRDO:
+    """Closed-form rate-distortion optimizer (reference src/quant.rs:377-505).
+
+    λ_optimal = 6·ln(2)·σ² / R_target;  step = round(sqrt(12·λ)), scaled per
+    sub-band by its quantization strength, with dead-zone = 1.5×step.
+    """
+
+    __slots__ = ("target_bpp", "quality")
+
+    def __init__(self, target_bpp: float, quality: int = 75):
+        self.target_bpp = float(target_bpp)
+        self.quality = quality
+
+    @classmethod
+    def with_quality(cls, quality: int) -> "AnalyticalRDO":
+        """Quality → approximate bpp: (q/100)²·23.9 + 0.1 (src/quant.rs:398-412)."""
+        quality = min(int(quality), 100)
+        q = quality / 100.0
+        # Rust's f64::mul_add is a fused multiply-add; math.fma exists on
+        # 3.13+, otherwise the unfused form differs by at most 1 ulp.
+        fma = getattr(math, "fma", None)
+        bpp = fma(q * q, 23.9, 0.1) if fma else q * q * 23.9 + 0.1
+        return cls(bpp, quality)
+
+    def compute_optimal_lambda(self, variance: float) -> float:
+        return (6.0 * math.log(2.0) * variance) / self.target_bpp
+
+    def lambda_to_step(self, lam: float) -> int:
+        # libm::round rounds half away from zero, unlike Python's round().
+        step = math.sqrt(12.0 * lam)
+        return max(int(math.floor(step + 0.5)), 1)
+
+    @staticmethod
+    def variance_from_moments(n: int, s1: int, s2: int) -> float:
+        """Population variance from exact integer moments, floored at 1.0:
+        ``var = (s2 - s1²/n) / n`` in f64."""
+        if n == 0:
+            return 1.0
+        mean = s1 / n
+        var = s2 / n - mean * mean
+        return max(var, 1.0)
+
+    def step_from_moments(self, n: int, s1: int, s2: int,
+                          subband: SubBand3D) -> tuple[int, int]:
+        """(step, dead_zone) for one band from its moments
+        (src/quant.rs:472-490 composition, dead_zone = 1.5×step)."""
+        var = self.variance_from_moments(n, s1, s2)
+        base_step = self.lambda_to_step(self.compute_optimal_lambda(var))
+        step = max(base_step * subband.quant_strength, 1)
+        return step, step + step // 2
+
+    def steps_from_moments(self, n: int, s1_8, s2_8) -> tuple[np.ndarray, np.ndarray]:
+        """Per-band (steps, dead_zones) int32 (8,) arrays from
+        :func:`band_moments_inter` output for one channel; ``n`` is the
+        per-band element count (volume size // 8)."""
+        steps = np.empty(8, np.int32)
+        dzs = np.empty(8, np.int32)
+        for band in SubBand3D:
+            s, d = self.step_from_moments(
+                n, int(s1_8[int(band)]), int(s2_8[int(band)]), band
+            )
+            steps[int(band)] = s
+            dzs[int(band)] = d
+        return steps, dzs

@@ -1,5 +1,5 @@
 """Integer lifting wavelets in the interleaved layout (PyTorch port of
-the level-0 part of ``alice_codec_tpu/ops/wavelet.py``).
+the interleaved part of ``alice_codec_tpu/ops/wavelet.py``).
 
 Filters (coefficients ×2^12; reference src/wavelet.rs:66-127)::
 
@@ -20,8 +20,12 @@ Two inverse modes: ``exact=False`` replays the steps with negated
 coefficients (the reference decoder, ±1 exact); ``exact=True`` subtracts
 the identical forward delta (perfect reconstruction).
 
-Only the single-level decomposition (``levels=1``) is ported; deeper
-pyramids are ROADMAP Queue 1 item 10.
+Multi-level decompositions keep the in-place property: level k lifts the
+subgrid of indices ≡ 0 (mod 2^k) on every axis with neighbour distance
+2^k.  That subgrid is the strided view ``x[..., ::2^k, ::2^k, ::2^k]``,
+and lifting it is a level-0 lift of the view — the same values as the
+JAX package's rolls by 2^k under its ``_level_active`` masks, without
+touching the rest of the volume.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ import torch
 
 from ..core import WaveletType
 
-__all__ = ["LIFTING_STEPS", "forward_3d_inter", "inverse_3d_inter"]
+__all__ = ["LIFTING_STEPS", "forward_1d_inter", "inverse_1d_inter",
+           "forward_3d_inter", "inverse_3d_inter"]
 
 # (coeff, predict) pairs per filter; coeff scaled by 2^12.
 LIFTING_STEPS: dict[WaveletType, tuple[tuple[int, bool], ...]] = {
@@ -110,29 +115,78 @@ def lift_axis(x: torch.Tensor, steps, axis: int) -> torch.Tensor:
     return x
 
 
-def _check_levels(levels: int) -> None:
-    if levels != 1:
-        raise NotImplementedError(
-            "multi-level decomposition is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
+def _subgrid(ndim: int, s: int, axes) -> tuple:
+    """Index of the stride-``s`` subgrid along ``axes``."""
+    idx = [slice(None)] * ndim
+    for ax in axes:
+        idx[ax % ndim] = slice(None, None, s)
+    return tuple(idx)
+
+
+def _lift_subgrid(x: torch.Tensor, steps, level: int, lift_axes,
+                  sub_axes) -> torch.Tensor:
+    """Lift the stride-2^level subgrid (over ``sub_axes``) of ``x`` along
+    each of ``lift_axes`` in turn; the rest of ``x`` is unchanged."""
+    s = 1 << level
+    if level == 0:
+        for ax in lift_axes:
+            x = lift_axis(x, steps, ax)
+        return x
+    idx = _subgrid(x.ndim, s, sub_axes)
+    sub = x[idx]
+    for ax in lift_axes:
+        sub = lift_axis(sub, steps, ax)
+    out = x.clone()
+    out[idx] = sub
+    return out
+
+
+def _check_axis(x: torch.Tensor, axis: int, level: int) -> None:
+    if x.shape[axis] % (2 << level):
+        raise ValueError(f"axis length {x.shape[axis]} not divisible by "
+                         f"{2 << level} (level {level})")
+
+
+def forward_1d_inter(x: torch.Tensor, wavelet: WaveletType, axis: int = -1,
+                     level: int = 0) -> torch.Tensor:
+    """Forward lifting along ``axis`` of the indices ≡ 0 (mod 2^level)
+    (every position of the other axes); int32."""
+    _check_axis(x, axis, level)
+    return _lift_subgrid(x, lift_steps(wavelet), level, (axis,), (axis,))
+
+
+def inverse_1d_inter(x: torch.Tensor, wavelet: WaveletType, axis: int = -1,
+                     level: int = 0, *, exact: bool = False) -> torch.Tensor:
+    """Inverse of :func:`forward_1d_inter` (compat ±1 replay, or exact
+    undo)."""
+    _check_axis(x, axis, level)
+    return _lift_subgrid(x, lift_steps(wavelet, inverse=True, exact=exact),
+                         level, (axis,), (axis,))
 
 
 def forward_3d_inter(volume: torch.Tensor, wavelet: WaveletType,
-                     levels: int = 1) -> torch.Tensor:
-    """Interleaved 3D forward on int32 ``(..., T, H, W)``: rows (W), then
-    columns (H), then time (T), all steps along one axis at a time."""
-    _check_levels(levels)
+                     levels: int = 1, start_level: int = 0) -> torch.Tensor:
+    """Interleaved 3D forward on int32 ``(..., T, H, W)``: per level, rows
+    (W), then columns (H), then time (T) over the level's LLL subgrid
+    (dims divisible by 2^levels).  ``start_level`` skips the first levels
+    (the plain 3D lift kernel does level 0)."""
     steps = lift_steps(wavelet)
-    for ax in (-1, -2, -3):
-        volume = lift_axis(volume, steps, ax)
+    for k in range(start_level, levels):
+        for ax in (-1, -2, -3):
+            _check_axis(volume, ax, k)
+        volume = _lift_subgrid(volume, steps, k, (-1, -2, -3), (-1, -2, -3))
     return volume
 
 
 def inverse_3d_inter(volume: torch.Tensor, wavelet: WaveletType,
-                     levels: int = 1, *, exact: bool = False) -> torch.Tensor:
-    """Inverse of :func:`forward_3d_inter`: time, then columns, then rows."""
-    _check_levels(levels)
+                     levels: int = 1, *, exact: bool = False,
+                     stop_level: int = 0) -> torch.Tensor:
+    """Inverse of :func:`forward_3d_inter`: per level from the deepest,
+    time, then columns, then rows.  ``stop_level`` stops before the last
+    levels (the plain 3D lift kernel undoes level 0)."""
     steps = lift_steps(wavelet, inverse=True, exact=exact)
-    for ax in (-3, -2, -1):
-        volume = lift_axis(volume, steps, ax)
+    for k in reversed(range(stop_level, levels)):
+        for ax in (-3, -2, -1):
+            _check_axis(volume, ax, k)
+        volume = _lift_subgrid(volume, steps, k, (-3, -2, -1), (-3, -2, -1))
     return volume

@@ -1,15 +1,21 @@
-"""Device stages of the dense ALC3 path (PyTorch port of the
-interleaved, single-level fused branch of ``alice_codec_tpu/pipeline.py``)
-and the per-plane container header.
+"""Device stages of the ALC3 codec (PyTorch port of the interleaved
+branches of ``alice_codec_tpu/pipeline.py``) and the per-plane container
+header.
 
-* encode: uint8 RGB (T, H, W, 3) → YCoCg-R → edge pad to even dims
-  (int16) → fused lift + quantize + zigzag kernel → uint8 symbols
-  (3, P) and row-sampled 256-bin histograms;
+* encode: uint8 RGB (T, H, W, 3) → YCoCg-R → edge pad (int16) → fused
+  lift + quantize + zigzag kernel → uint8 symbols (3, P) and row-sampled
+  256-bin histograms;
 * decode: symbols (3, P) → fused dequantize + inverse lift kernel →
   crop → inverse YCoCg-R → uint8 RGB;
+* the modes without the fused kernels (multi-level, AnalyticalRDO, deep
+  16-bit symbols): the transform is colour + pad (int32) → the plain
+  level-0 3D lift kernel → the subgrid lifts of levels ≥ 1 (torch), then
+  quantize per channel or per band; the inverse mirrors it and ends in
+  the int32 → int16 truncating cast;
 * sparse phase 1: the encode stage over the channels that carry nonzero
   colour only, with the value rows each needs (the zero-channel elision
-  of the JAX package's ``encode_sparse_phase1``).
+  of the JAX package's ``encode_sparse_phase1``), and its deep form over
+  the 6 lo/hi byte planes.
 """
 
 from __future__ import annotations
@@ -21,30 +27,32 @@ import numpy as np
 import torch
 
 from .core import WaveletType
-from .ops import color, quant
-from .ops.kernels.lift import forward_quant, inverse_dequant
+from .ops import color, quant, wavelet
+from .ops.kernels.lift import (_FRAME_BYTES, forward_3d, forward_quant,
+                               inverse_3d, inverse_dequant)
 from .ops.kernels.sparse import tile_rows
 
 __all__ = ["ChannelHeader", "encode_device", "decode_device",
-           "encode_sparse_phase1"]
+           "transform_moments_device", "encode_bands_device",
+           "decode_bands_device", "encode_deep_device", "decode_deep_device",
+           "encode_sparse_phase1", "encode_deep_sparse_phase1"]
 
-# The tile budgets of the JAX package's Pallas lift kernels
-# (lift_kernels.py:66-73): they decide which shapes its sparse phase 1
-# reports per-channel colour flags for (see _tpu_fused).
+# The tile budget of the JAX package's Pallas lift kernels
+# (lift_kernels.py:66): with _FRAME_BYTES it decides which shapes take
+# its fused lift kernels (see _tpu_fused).
 _TILE_BYTES = 6 * 1024 * 1024
-_FRAME_BYTES = 9 * 1024 * 1024
 
 
 def _edge_index(n: int, padded: int, device) -> torch.Tensor:
     return torch.arange(padded, device=device).clamp(max=n - 1)
 
 
-def _color_pad(rgb: torch.Tensor, padded) -> torch.Tensor:
-    """color → edge-pad: uint8 (T, H, W, 3) → int16 (3, pT, pH, pW)
+def _color_pad(rgb: torch.Tensor, padded, dtype=torch.int16) -> torch.Tensor:
+    """color → edge-pad: uint8 (T, H, W, 3) → ``dtype`` (3, pT, pH, pW)
     (edge replication, reference src/pipeline.rs:77-114)."""
     pw, ph, pf = padded
     t, h, w = rgb.shape[:3]
-    chans = torch.stack(color.rgb_to_ycocg_r(rgb))  # (3, T, H, W) int16
+    chans = torch.stack(color.rgb_to_ycocg_r(rgb)).to(dtype)  # (3, T, H, W)
     dev = chans.device
     if pf != t:
         chans = chans.index_select(1, _edge_index(t, pf, dev))
@@ -53,6 +61,64 @@ def _color_pad(rgb: torch.Tensor, padded) -> torch.Tensor:
     if pw != w:
         chans = chans.index_select(3, _edge_index(w, pw, dev))
     return chans.contiguous()
+
+
+def _pick_tile(n: int, cap: int) -> int:
+    """Largest 8-aligned divisor of ``n`` up to ``cap``, or ``n`` when it
+    fits (the JAX package's _pick_hb / _pick_band)."""
+    if n <= cap:
+        return n
+    b = 0
+    for d in range(8, min(n, cap) + 1, 8):
+        if n % d == 0:
+            b = d
+    return b
+
+
+def _tpu_fused(padded) -> bool:
+    """Whether the JAX package runs its fused Pallas lift kernels for a
+    padded (pW, pH, pT) volume of int16 coefficients
+    (lift_kernels.lift3d_ok).  Elsewhere it takes its unfused int32
+    branch: its decode then stores no int16 between the passes, and its
+    sparse phase 1 reports all three channels as nonzero (which the
+    capacity caches of the codec see), so the port follows it."""
+    w, h, t = padded
+    if t % 2 or h % 2 or w % 2:
+        return False
+    if _pick_tile(h, max(1, _TILE_BYTES // (t * w * 4))) < 1:
+        return False
+    if h * w * 2 <= _FRAME_BYTES:
+        return True
+    return (_pick_tile(h, max(1, _TILE_BYTES // (w * 4))) >= 8
+            and _pick_tile(w, max(1, _TILE_BYTES // (h * 4))) >= 128)
+
+
+def _transform(rgb: torch.Tensor, wavelet_type, padded, levels: int = 1
+               ) -> torch.Tensor:
+    """color → edge-pad → forward 3D wavelet: uint8 (T, H, W, 3) → int32
+    coefficients (3, pT, pH, pW).  Level 0 runs in the plain 3D lift
+    kernel, levels ≥ 1 in the subgrid lifts (``padded`` divisible by
+    2^levels)."""
+    out = forward_3d(_color_pad(rgb, padded, torch.int32), wavelet_type)
+    if levels > 1:
+        out = wavelet.forward_3d_inter(out, wavelet_type, levels,
+                                       start_level=1)
+    return out
+
+
+def _inverse_rgb(coeffs: torch.Tensor, wavelet_type, dims, levels: int,
+                 exact: bool) -> torch.Tensor:
+    """Inverse of :func:`_transform`: int32 coefficients (3, pT, pH, pW) →
+    subgrid inverses down to level 1, the plain 3D lift kernel's level-0
+    inverse (int32), crop, int32 → int16 truncating cast
+    (src/pipeline.rs:602-611), inverse YCoCg-R → uint8 (T, H, W, 3)."""
+    w, h, t = dims
+    if levels > 1:
+        coeffs = wavelet.inverse_3d_inter(coeffs, wavelet_type, levels,
+                                          exact=exact, stop_level=1)
+    volume = inverse_3d(coeffs, wavelet_type, exact=exact)
+    chans = volume[:, :t, :h, :w].to(torch.int16)
+    return color.ycocg_r_to_rgb(chans[0], chans[1], chans[2])
 
 
 def _hist_sample(sym2d: torch.Tensor, stride: int) -> torch.Tensor:
@@ -71,33 +137,130 @@ def _hist_sample(sym2d: torch.Tensor, stride: int) -> torch.Tensor:
     return s.reshape(nc, nb * 128)
 
 
-def encode_device(rgb: torch.Tensor, step: int, dead_zone: int, *,
-                  wavelet_type: WaveletType, padded, hist_stride: int = 1):
-    """Fused encode stage: ``rgb`` uint8 (T, H, W, 3) on the working
-    device → ``(symbols (3, P) uint8, histograms (3, 256) int64)``."""
+def _histograms(planes: torch.Tensor, stride: int) -> torch.Tensor:
+    """(n, N) byte planes → (n, 256) int64 histograms of their
+    :func:`_hist_sample` rows."""
+    return torch.stack([quant.build_histogram(row)
+                        for row in _hist_sample(planes, stride)])
+
+
+def _symbols(rgb: torch.Tensor, step, dead_zone, *, wavelet_type, padded,
+             levels: int) -> torch.Tensor:
+    """Transform → quantize → zigzag: uint8 (T, H, W, 3) → uint8 symbols
+    (3, P).  Where the JAX package runs its fused kernels (one level,
+    :func:`_tpu_fused`): the fused lift + quantize kernel; elsewhere
+    :func:`_transform`, then quantize and zigzag."""
     pw, ph, pf = padded
-    chans = _color_pad(rgb, padded)
-    sym = forward_quant(chans, wavelet_type, step, dead_zone)
-    symbols = sym.reshape(3, pf * ph * pw)
-    hists = torch.stack([
-        quant.build_histogram(row) for row in _hist_sample(symbols, hist_stride)
-    ])
-    return symbols, hists
+    if levels == 1 and _tpu_fused(padded):
+        sym = forward_quant(_color_pad(rgb, padded), wavelet_type, step,
+                            dead_zone)
+    else:
+        coeffs = _transform(rgb, wavelet_type, padded, levels)
+        sym = quant.to_symbols(quant.quantize(coeffs, step, dead_zone))
+    return sym.reshape(3, pf * ph * pw)
+
+
+def encode_device(rgb: torch.Tensor, step: int, dead_zone: int, *,
+                  wavelet_type: WaveletType, padded, levels: int = 1,
+                  hist_stride: int = 1):
+    """Encode stage: ``rgb`` uint8 (T, H, W, 3) on the working device →
+    ``(symbols (3, P) uint8, histograms (3, 256) int64)``."""
+    symbols = _symbols(rgb, step, dead_zone, wavelet_type=wavelet_type,
+                       padded=padded, levels=levels)
+    return symbols, _histograms(symbols, hist_stride)
+
+
+def transform_moments_device(rgb: torch.Tensor, *, wavelet_type: WaveletType,
+                             padded):
+    """RDO phase 1: transform + exact per-band integer moments →
+    ``(coeffs (3, pT, pH, pW) int32, s1 (3, 8) int64, s2 (3, 8) int64)``;
+    the host turns the moments into per-band steps
+    (:meth:`~.ops.quant.AnalyticalRDO.steps_from_moments`)."""
+    coeffs = _transform(rgb, wavelet_type, padded)
+    s1, s2 = quant.band_moments_inter(coeffs)
+    return coeffs, s1, s2
+
+
+def encode_bands_device(coeffs: torch.Tensor, steps8, dead_zones8, *,
+                        padded, hist_stride: int = 1):
+    """RDO phase 2: per-band quantize → ``(symbols (3, P) uint8,
+    histograms (3, 256) int64)``.  ``steps8`` / ``dead_zones8``: (3, 8)."""
+    pw, ph, pf = padded
+    q = quant.quantize_bands_inter(coeffs, steps8, dead_zones8)
+    symbols = quant.to_symbols(q).reshape(3, pf * ph * pw)
+    return symbols, _histograms(symbols, hist_stride)
+
+
+def decode_bands_device(symbols: torch.Tensor, steps8, *,
+                        wavelet_type: WaveletType, dims, padded,
+                        exact: bool = False) -> torch.Tensor:
+    """Inverse of the RDO encode: symbols (3, P) uint8 + ``steps8``
+    (3, 8) → RGB uint8."""
+    pw, ph, pf = padded
+    q = quant.from_symbols(symbols).reshape(3, pf, ph, pw)
+    return _inverse_rgb(quant.dequantize_bands_inter(q, steps8),
+                        wavelet_type, dims, 1, exact)
+
+
+def _deep_planes(rgb, step, dead_zone, *, wavelet_type, padded, levels):
+    """Transform → quantize → unwrapped 16-bit zigzag → (6, P) uint8 lo/hi
+    byte planes in the order Y-lo, Y-hi, Co-lo, Co-hi, Cg-lo, Cg-hi."""
+    pw, ph, pf = padded
+    coeffs = _transform(rgb, wavelet_type, padded, levels)
+    s16 = quant.to_symbols16(quant.quantize(coeffs, step, dead_zone))
+    s16 = s16.reshape(3, pf * ph * pw)
+    planes = torch.stack([s16 & 255, s16 >> 8], dim=1)  # (3, 2, P)
+    return planes.reshape(6, pf * ph * pw).to(torch.uint8)
+
+
+def encode_deep_device(rgb: torch.Tensor, step, dead_zone, *,
+                       wavelet_type: WaveletType, padded, levels: int = 1,
+                       hist_stride: int = 1):
+    """Deep (16-bit symbol) encode stage — ALC3's escape coding:
+    ``(planes (6, P) uint8, histograms (6, 256) int64)``.  With q=100
+    (step 1) and the exact inverse it is lossless on any input."""
+    planes = _deep_planes(rgb, step, dead_zone, wavelet_type=wavelet_type,
+                          padded=padded, levels=levels)
+    return planes, _histograms(planes, hist_stride)
+
+
+def decode_deep_device(planes: torch.Tensor, step: torch.Tensor, *,
+                       wavelet_type: WaveletType, dims, padded,
+                       exact: bool = False, levels: int = 1) -> torch.Tensor:
+    """Inverse of :func:`encode_deep_device`: (6, P) uint8 planes → RGB.
+    ``step``: per-channel (3,) quant steps."""
+    pw, ph, pf = padded
+    s16 = planes.reshape(3, 2, pf * ph * pw).to(torch.int32)
+    s16 = s16[:, 0] | (s16[:, 1] << 8)
+    q = quant.from_symbols16(s16).reshape(3, pf, ph, pw)
+    return _inverse_rgb(quant.dequantize(q, step.reshape(3, 1, 1, 1)),
+                        wavelet_type, dims, levels, exact)
 
 
 def decode_device(symbols: torch.Tensor, step: torch.Tensor, *,
                   wavelet_type: WaveletType, dims, padded,
-                  exact: bool = False, active=None) -> torch.Tensor:
-    """Fused decode stage: symbols (3, P) uint8 → RGB (T, H, W, 3) uint8.
+                  exact: bool = False, levels: int = 1,
+                  active=None) -> torch.Tensor:
+    """Decode stage: symbols (3, P) uint8 → RGB (T, H, W, 3) uint8.
     ``step``: per-channel (3,) quant steps.  ``exact`` selects the
     exact-undo inverse; the default replays the reference's
-    negated-coefficient inverse.
+    negated-coefficient inverse.  Where the JAX package runs its fused
+    kernels (one level, :func:`_tpu_fused`): the fused dequantize +
+    inverse lift kernel, which stores int16 between its passes;
+    elsewhere dequantize and :func:`_inverse_rgb` (int32 throughout,
+    then the truncating cast) — the JAX package's unfused branch, which
+    differs from the fused one where an intermediate leaves int16.
 
-    ``active``: the channels that may carry nonzero symbols.  An all-zero
-    channel inverse-lifts to exact zeros, so only the active ones go
-    through the kernel and the rest are zeros (bit-exact)."""
+    ``active`` (fused only): the channels that may carry nonzero
+    symbols.  An all-zero channel inverse-lifts to exact zeros, so only
+    the active ones go through the kernel and the rest are zeros
+    (bit-exact)."""
     w, h, t = dims
     pw, ph, pf = padded
+    if levels > 1 or not _tpu_fused(padded):
+        q = quant.from_symbols(symbols).reshape(3, pf, ph, pw)
+        return _inverse_rgb(quant.dequantize(q, step.reshape(3, 1, 1, 1)),
+                            wavelet_type, dims, levels, exact)
     sym4 = symbols.reshape(3, pf, ph, pw)
     act = (0, 1, 2) if active is None else tuple(sorted(active))
     if act == (0, 1, 2):
@@ -115,58 +278,50 @@ def decode_device(symbols: torch.Tensor, step: torch.Tensor, *,
     return color.ycocg_r_to_rgb(chans[0], chans[1], chans[2])
 
 
-def _pick_tile(n: int, cap: int) -> int:
-    """Largest 8-aligned divisor of ``n`` up to ``cap``, or ``n`` when it
-    fits (the JAX package's _pick_hb / _pick_band)."""
-    if n <= cap:
-        return n
-    b = 0
-    for d in range(8, min(n, cap) + 1, 8):
-        if n % d == 0:
-            b = d
-    return b
-
-
-def _tpu_fused(padded) -> bool:
-    """Whether the JAX package runs its fused Pallas lift for a padded
-    (pW, pH, pT) volume of int16 coefficients (lift_kernels.lift3d_ok).
-    Only there does its sparse phase 1 report which channels are zero;
-    elsewhere it reports all three as nonzero, and the capacity caches
-    of the codec see the difference, so the port follows it."""
-    w, h, t = padded
-    if t % 2 or h % 2 or w % 2:
-        return False
-    if _pick_tile(h, max(1, _TILE_BYTES // (t * w * 4))) < 1:
-        return False
-    if h * w * 2 <= _FRAME_BYTES:
-        return True
-    return (_pick_tile(h, max(1, _TILE_BYTES // (w * 4))) >= 8
-            and _pick_tile(w, max(1, _TILE_BYTES // (h * 4))) >= 128)
-
-
 def encode_sparse_phase1(rgb: torch.Tensor, step: int, dead_zone: int, *,
                          wavelet_type: WaveletType, padded, pp: int,
-                         active=(0, 1, 2)):
+                         levels: int = 1, active=(0, 1, 2)):
     """Sparse phase 1: colour + pad, then the fused lift + quantize
     kernel over the ``active`` channels only (a channel whose colour
     plane is all zero gives all-zero symbols, so skipping it is
     bit-exact).  Returns ``(symbols (na, pp) uint8 — padded with zeros
     to ``pp``, trows (na, pp/1024) int32 — the value rows of each tile
     (:func:`~.ops.kernels.sparse.tile_rows`), flags (3,) bool — which
-    colour planes are nonzero, regardless of ``active``)``."""
+    colour planes are nonzero, regardless of ``active``)``.
+
+    Where the JAX package does not run its fused kernels (``levels`` > 1,
+    or :func:`_tpu_fused` false) it takes its unfused branch, which
+    reports every channel as nonzero; so does this one."""
     pw, ph, pf = padded
     active = tuple(sorted(active))
-    chans = _color_pad(rgb, padded)
-    if _tpu_fused(padded):
-        flags = (chans.reshape(3, -1) != 0).any(1)
+    if levels > 1 or not _tpu_fused(padded):
+        flags = torch.ones(3, dtype=torch.bool, device=rgb.device)
+        symbols = _symbols(rgb, step, dead_zone, wavelet_type=wavelet_type,
+                           padded=padded, levels=levels)
+        if active != (0, 1, 2):
+            symbols = symbols[torch.tensor(active, device=rgb.device)]
     else:
-        flags = torch.ones(3, dtype=torch.bool, device=chans.device)
-    if active != (0, 1, 2):
-        chans = chans[torch.tensor(active, device=chans.device)]
-    symbols = forward_quant(chans, wavelet_type, step, dead_zone).reshape(
-        len(active), pf * ph * pw)
+        chans = _color_pad(rgb, padded)
+        flags = (chans.reshape(3, -1) != 0).any(1)
+        if active != (0, 1, 2):
+            chans = chans[torch.tensor(active, device=chans.device)]
+        symbols = forward_quant(chans, wavelet_type, step, dead_zone).reshape(
+            len(active), pf * ph * pw)
     symbols = torch.nn.functional.pad(symbols, (0, pp - pf * ph * pw))
     return symbols, tile_rows(symbols), flags
+
+
+def encode_deep_sparse_phase1(rgb: torch.Tensor, step: int, dead_zone: int,
+                              *, wavelet_type: WaveletType, padded, pp: int,
+                              levels: int = 1):
+    """deep×sparse phase 1: the 6 lo/hi byte planes of
+    :func:`encode_deep_device`, zero-padded to ``pp``, and their per-tile
+    value rows — each byte plane then rides the sparse wire on its own."""
+    pw, ph, pf = padded
+    planes = _deep_planes(rgb, step, dead_zone, wavelet_type=wavelet_type,
+                          padded=padded, levels=levels)
+    planes = torch.nn.functional.pad(planes, (0, pp - pf * ph * pw))
+    return planes, tile_rows(planes)
 
 
 @dataclass

@@ -12,22 +12,30 @@ Phases (any failure raises and exits non-zero before the last line):
    ``alice_codec_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. every kernel against its plain PyTorch version on the card, bit-exact:
    at the main paths' full widths (a 64×1080×1920 chunk; all 1536 rANS
-   segments; compact / expand on the q=50 chroma planes) and at small
-   shapes (odd-padded volumes; sparse planes at densities 0-100 % with
-   capacities that differ per plane, and a hostile bitmap); with
-   per-kernel timings;
-3. the committed JAX-written goldens (``tests/golden/torch`` and its
-   ``sparse/``): the port decodes each container to the JAX decode and
-   re-encodes each input to the same bytes, the sparse codec's capacity
-   caches included;
-4. three paths at full width, each over one 64×1080×1920 chunk kept on
+   segments; compact / expand on the q=50 chroma planes; the plain 3D
+   lift at int32 in all three wavelets and both inverse modes) and at
+   small shapes (odd-padded volumes; int32 volumes far beyond int16;
+   sparse planes at densities 0-100 % with capacities that differ per
+   plane, and a hostile bitmap); with per-kernel timings; then a 4K
+   check (16×2160×3840, where the JAX package splits its spatial pass
+   into single-axis band kernels): the fused and the plain 3D lifts on
+   that chunk against their plain versions, and a dense q=90 and a deep
+   q=100 roundtrip of it;
+3. the committed JAX-written goldens (``tests/golden/torch``, its
+   ``sparse/`` and its ``modes/``): the port decodes each container to
+   the JAX decode and re-encodes each input to the same bytes, the
+   sparse codec's capacity caches included;
+4. the paths at full width, each over one 64×1080×1920 chunk kept on
    the card, with the launch counts of every kernel set to 0 just before
    the path's encode → decode and read just after:
    ``Alc3Codec(90, "cdf53")`` (dense), the north star
-   ``Alc3Codec(90, "cdf53", sparse=True)`` and
-   ``Alc3Codec(50, "cdf53", sparse=True)``; each container and RGB equal
+   ``Alc3Codec(90, "cdf53", sparse=True)``,
+   ``Alc3Codec(50, "cdf53", sparse=True)``, ``Alc3Codec(100, "haar")``
+   (deep, lossless: its exact decode is the input),
+   ``Alc3Codec(90, "cdf53", rdo=True)``, their sparse compositions, and
+   ``Alc3Codec(90, "cdf53", levels=3)``; each container and RGB equal
    those of the same pipeline run with the plain versions on the card,
-   and each sparse path's RGB equals the dense codec's at its quality;
+   and each sparse path's RGB equals the dense codec's at its settings;
 5. timings (chunks/s, peak memory) of each path, one roundtrip of each
    under torch.profiler (device time by kernel), the ``kernels`` JSON
    line and the final ``{"ok": true, ...}`` line.
@@ -48,6 +56,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 T, H, W = 64, 1080, 1920   # the main paths' chunk
+T4K, H4K, W4K = 16, 2160, 3840  # the 4K check's chunk
 QUALITY = 90
 SPARSE_Q = (90, 50)        # the north star, and a quality with sparse planes
 
@@ -107,8 +116,8 @@ def sha256(path: Path) -> str:
 
 
 def golden_input(kind: str, seed: int, shape):
-    """The (T, H, W, 3) uint8 input of one sparse golden chunk
-    (``tests/golden/torch/sparse/manifest.json``).  Also used by the
+    """The (T, H, W, 3) uint8 input of one sparse or mode golden chunk
+    (``tests/golden/torch/{sparse,modes}/manifest.json``).  Also used by the
     golden generator and the tests; the repository root must be on
     ``sys.path`` (for ``bench``)."""
     import numpy as np
@@ -142,6 +151,8 @@ def plain_kernels():
     swaps = [
         (pipeline, "forward_quant", lift.forward_quant_plain),
         (pipeline, "inverse_dequant", lift.inverse_dequant_plain),
+        (pipeline, "forward_3d", lift.forward_3d_plain),
+        (pipeline, "inverse_3d", lift.inverse_3d_plain),
         (alc3, "encode_words", rans3.encode_words_plain),
         (alc3, "decode_words", rans3.decode_words_plain),
         (alc3, "compact", sparse.compact_plain),
@@ -168,14 +179,15 @@ def main() -> int:
 
     from alice_codec_tpu_torch import Alc3Codec, WaveletType, _build, quality_to_step
     from alice_codec_tpu_torch import alc3, pipeline
-    from alice_codec_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from alice_codec_tpu_torch.ops.kernels import launch_counts, lift, reset_launches
     from alice_codec_tpu_torch.ops.kernels.lift import (
-        forward_quant, forward_quant_plain, inverse_dequant,
-        inverse_dequant_plain)
+        forward_3d, forward_3d_plain, forward_quant, forward_quant_plain,
+        inverse_3d, inverse_3d_plain, inverse_dequant, inverse_dequant_plain)
     from alice_codec_tpu_torch.ops.kernels.rans3 import (
         NG, decode_words, decode_words_plain, encode_words, encode_words_plain)
     from alice_codec_tpu_torch.ops.kernels.sparse import (
         compact, compact_plain, expand, expand_plain, tile_rows)
+    from alice_codec_tpu_torch.ops import wavelet
     from alice_codec_tpu_torch.ops.tables_device import freq_table_device
     from bench import _test_chunk
 
@@ -223,8 +235,52 @@ def main() -> int:
                     c = inverse_dequant_plain(sym, w_small, s2, exact=exact)
                     check(max_abs_err(b, c) == 0,
                           f"inverse_dequant small {w_small.name} exact={exact}")
+    # the split-frame form (int16 between the W and H passes, as the TPU
+    # stores it on frames beyond its one-block budget), forced here by
+    # cutting the budget, on inputs whose intermediates leave int16
+    budget = lift._FRAME_BYTES
+    lift._FRAME_BYTES = 1024
+    try:
+        big16 = torch.as_tensor(
+            rng.integers(-30000, 30000, (3, 4, 16, 256), dtype=np.int16),
+            device=dev)
+        sym16 = torch.as_tensor(
+            rng.integers(0, 256, (3, 4, 16, 256), dtype=np.uint8), device=dev)
+        for w_small in WaveletType:
+            check(max_abs_err(forward_quant(big16, w_small, 160, 160),
+                              forward_quant_plain(big16, w_small, 160, 160)) == 0,
+                  f"forward_quant split frame {w_small.name}")
+            for exact in (False, True):
+                check(max_abs_err(
+                    inverse_dequant(sym16, w_small, 160, exact=exact),
+                    inverse_dequant_plain(sym16, w_small, 160, exact=exact)) == 0,
+                      f"inverse_dequant split frame {w_small.name}")
+    finally:
+        lift._FRAME_BYTES = budget
     print("small shapes: forward_quant / inverse_dequant bit-exact "
-          "(3 wavelets, both inverse modes, random symbols at steps 64, 160)")
+          "(3 wavelets, both inverse modes, random symbols at steps 64, 160; "
+          "split frames)")
+    # the plain 3D lift at small shapes, int32 far beyond int16 (an int16
+    # store between its passes would wrap here)
+    for shape in ((3, 6, 38, 52), (1, 4, 70, 34), (2, 2, 2, 2)):
+        big = torch.as_tensor(
+            rng.integers(-(1 << 20), 1 << 20, shape, dtype=np.int32), device=dev)
+        for w_small in WaveletType:
+            a = forward_3d(big, w_small)
+            check(max_abs_err(a, forward_3d_plain(big, w_small)) == 0,
+                  f"forward_3d small {shape} {w_small.name}")
+            check(bool((a.abs() > 32767).any()), "small K7 input stays in int16")
+            for exact in (False, True):
+                for src in (a, big):
+                    check(max_abs_err(inverse_3d(src, w_small, exact=exact),
+                                      inverse_3d_plain(src, w_small,
+                                                       exact=exact)) == 0,
+                          f"inverse_3d small {shape} {w_small.name} "
+                          f"exact={exact}")
+            check(bool(torch.equal(inverse_3d(a, w_small, exact=True), big)),
+                  f"inverse_3d exact does not invert forward_3d {w_small.name}")
+    print("small shapes: forward_3d / inverse_3d bit-exact (3 wavelets, both "
+          "inverse modes, int32 values to ±2^20)")
 
     # K1 at full width
     chans = pipeline._color_pad(rgb, padded)
@@ -257,6 +313,43 @@ def main() -> int:
         plain_ms=time_ms(lambda: inverse_dequant_plain(sym_k, wt, steps3), 2),
         bound_ms=bound_ms(sym_k.numel() + sym_k.numel() * 2))
     torch.cuda.empty_cache()
+
+    # K7 at full width: the plain 3D lift of the int32 chunk, all three
+    # wavelets, both inverse modes
+    chans32 = pipeline._color_pad(rgb, padded, torch.int32)
+    err = 0
+    for w_full in WaveletType:
+        c_k = forward_3d(chans32, w_full)
+        e = max_abs_err(c_k, forward_3d_plain(chans32, w_full))
+        check(e == 0, f"forward_3d {w_full.name} differs by {e}")
+        err = max(err, e)
+        for exact in (False, True):
+            v_k = inverse_3d(c_k, w_full, exact=exact)
+            e = max_abs_err(v_k, inverse_3d_plain(c_k, w_full, exact=exact))
+            check(e == 0, f"inverse_3d {w_full.name} exact={exact} differs by {e}")
+            err = max(err, e)
+            if exact:
+                check(bool(torch.equal(v_k, chans32)),
+                      f"inverse_3d exact does not invert forward_3d {w_full.name}")
+            del v_k
+        del c_k
+        torch.cuda.empty_cache()
+    c_k = forward_3d(chans32, wt)
+    k7_bound = bound_ms(chans32.numel() * 4 * 2)
+    stats["forward_3d"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: forward_3d(chans32, wt), 10),
+        plain_ms=time_ms(lambda: forward_3d_plain(chans32, wt), 2),
+        bound_ms=k7_bound)
+    stats["inverse_3d"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: inverse_3d(c_k, wt, exact=True), 10),
+        plain_ms=time_ms(lambda: inverse_3d_plain(c_k, wt, exact=True), 2),
+        bound_ms=k7_bound)
+    del chans32, c_k
+    torch.cuda.empty_cache()
+    print("full width: forward_3d / inverse_3d bit-exact at int32 "
+          f"{T}x{H}x{W} (3 wavelets, both inverse modes)")
 
     # K2 / K3 at full width: all 3·512 segments of the chunk
     symbols, hists = pipeline.encode_device(
@@ -383,6 +476,73 @@ def main() -> int:
           f"{ms_select:.3f} ms, masked_scatter_ {ms_scatter:.3f} ms [{card}]")
     del sym50, trows50, bm_k, vals_k, out_k, mask, nz
     torch.cuda.empty_cache()
+    # 4K: frames the JAX package's fused spatial kernel cannot hold, so it
+    # splits the pass into single-axis band kernels (K7b); here row_lift
+    # and col_lift run at every frame size.  The fused and the plain 3D
+    # lifts on a 4K chunk against their plain versions, then a dense q=90
+    # and a deep q=100 roundtrip of it with the launches of the lift
+    # wrappers (each launch runs one row_lift and one col_lift).
+    t0 = time.perf_counter()
+    rgb4k = torch.as_tensor(_test_chunk(T4K, H4K, W4K, seed=1), device=dev)
+    padded4k = (W4K, H4K, T4K)
+    ch16 = pipeline._color_pad(rgb4k, padded4k)
+    s4 = forward_quant(ch16, wt, step, step)
+    check(max_abs_err(s4, forward_quant_plain(ch16, wt, step, step)) == 0,
+          "forward_quant differs from its plain version at 4K")
+    del ch16
+    for exact in (False, True):
+        check(max_abs_err(inverse_dequant(s4, wt, step, exact=exact),
+                          inverse_dequant_plain(s4, wt, step, exact=exact)) == 0,
+              f"inverse_dequant exact={exact} differs at 4K")
+    del s4
+    torch.cuda.empty_cache()
+    ch32 = pipeline._color_pad(rgb4k, padded4k, torch.int32)
+    for w4 in (wt, WaveletType.HAAR):
+        c4 = forward_3d(ch32, w4)
+        check(max_abs_err(c4, forward_3d_plain(ch32, w4)) == 0,
+              f"forward_3d {w4.name} differs at 4K")
+        for exact in (False, True):
+            check(max_abs_err(inverse_3d(c4, w4, exact=exact),
+                              inverse_3d_plain(c4, w4, exact=exact)) == 0,
+                  f"inverse_3d {w4.name} exact={exact} differs at 4K")
+        del c4
+        torch.cuda.empty_cache()
+    # K7b's time: the row and column kernels inside one forward_3d call
+    forward_3d(ch32, wt)
+    _, rows = device_profile(lambda: forward_3d(ch32, wt))
+    spatial_ms = sum(ms for key, ms, _ in rows
+                     if "row_lift<" in key or "col_lift<" in key)
+    check(spatial_ms > 0, "no row_lift / col_lift time in the 4K profile")
+    steps_f = wavelet.lift_steps(wt)
+    k7b_plain = time_ms(lambda: wavelet.lift_axis(
+        wavelet.lift_axis(ch32, steps_f, -1), steps_f, -2), 2)
+    k7b_bound = bound_ms(ch32.numel() * 4 * 2)
+    del ch32
+    torch.cuda.empty_cache()
+    reset_launches()
+    d4 = Alc3Codec(QUALITY, "cdf53")
+    out4 = d4.decode(d4.encode(rgb4k))
+    lossless = Alc3Codec(100, "haar")
+    out4d = lossless.decode(lossless.encode(rgb4k), exact=True)
+    torch.cuda.synchronize()
+    k7b_launches = sum(launch_counts()[k] for k in (
+        "forward_quant", "inverse_dequant", "forward_3d", "inverse_3d"))
+    check(k7b_launches == 4, f"4K lift launches {launch_counts()}")
+    check(bool(torch.equal(out4d, rgb4k)),
+          "deep q=100 at 4K: exact decode differs from the input")
+    mse4 = float(((out4.float() - rgb4k.float()) ** 2).mean().item())
+    stats["row_col_lift"] = dict(max_abs_err=0, ms=spatial_ms,
+                                 plain_ms=k7b_plain, bound_ms=k7b_bound)
+    print(f"4K {T4K}x{H4K}x{W4K}: forward_quant / inverse_dequant / "
+          f"forward_3d / inverse_3d bit-exact; row_lift + col_lift "
+          f"{spatial_ms:.3f} ms in one forward_3d (plain W+H lift "
+          f"{k7b_plain:.1f} ms); dense q=90 PSNR "
+          f"{10 * np.log10(255.0 ** 2 / mse4):.4f} dB, deep q=100 lossless; "
+          f"{k7b_launches} lift launches, {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    del rgb4k, out4, out4d, d4, lossless
+    torch.cuda.empty_cache()
+
     for name, s in stats.items():
         print(f"{name}: {s['ms']:.3f} ms per launch (plain {s['plain_ms']:.1f} ms, "
               f"bytes bound {s['bound_ms']:.3f} ms), max |kernel - plain| "
@@ -434,72 +594,128 @@ def main() -> int:
     print(f"sparse goldens: {n_files} JAX containers decoded bit-exact and "
           f"re-encoded byte-identical (cases {', '.join(cases)})")
 
-    # ── 4. the main paths at full width ─────────────────────────
+    mdir = gdir / "modes"
+    mcases = json.loads((mdir / "manifest.json").read_text())["cases"]
+    for case, spec in mcases.items():
+        data = (mdir / spec["file"]).read_bytes()
+        check(sha256(mdir / spec["file"]) == spec["sha256"],
+              f"mode golden {spec['file']} does not match its manifest")
+        m_codec = Alc3Codec(**spec["codec"])
+        m_rgb = golden_input(spec["kind"], spec["seed"], spec["shape"])
+        chunk = m_codec.encode(m_rgb)
+        check(list(chunk.kcaps) == spec["kcaps"],
+              f"mode golden {case}: capacities {chunk.kcaps}")
+        check(Alc3Codec.to_bytes(chunk) == data,
+              f"mode golden {case}: re-encode differs")
+        _, chunks = Alc3Codec.from_bytes(data)
+        for exact, key in ((False, "rgb_sha256"), (True, "rgb_exact_sha256")):
+            got = m_codec.decode(chunks[0], exact=exact, as_numpy=True)
+            check(hashlib.sha256(got.tobytes()).hexdigest() == spec[key],
+                  f"mode golden {case}: decode (exact={exact}) differs from "
+                  f"the JAX decode")
+    print(f"mode goldens: {len(mcases)} JAX containers (deep, rdo, levels "
+          f"x sparse) decoded bit-exact in both inverse modes and re-encoded "
+          f"byte-identical (cases {', '.join(mcases)})")
+
+    # ── 4. the paths at full width ──────────────────────────────
     paths = {"dense_q90": Alc3Codec(QUALITY, "cdf53")}
     for q in SPARSE_Q:
         paths[f"sparse_q{q}"] = Alc3Codec(q, "cdf53", sparse=True)
+    paths.update(
+        deep_q100=Alc3Codec(100, "haar"),
+        rdo_q90=Alc3Codec(QUALITY, "cdf53", rdo=True),
+        deep_sparse_q100=Alc3Codec(100, "haar", sparse=True),
+        rdo_sparse_q90=Alc3Codec(QUALITY, "cdf53", rdo=True, sparse=True),
+        levels3_q90=Alc3Codec(QUALITY, "cdf53", levels=3))
+
+    def settings(codec, **change):
+        kw = dict(quality=codec.quality, wavelet=codec.wavelet_type,
+                  rdo=codec.rdo, deep=codec.deep, levels=codec.levels,
+                  sparse=codec.sparse)
+        kw.update(change)
+        return kw
+
     dense_rgb = {}
     by_path = {}
     for name, codec in paths.items():
+        exact = codec.deep  # deep q=100 is lossless with the exact inverse
         out = codec.decode(codec.encode(rgb))  # warm-up (fills the caches)
         torch.cuda.synchronize()
         del out
         reset_launches()
         chunk = codec.encode(rgb)
-        out = codec.decode(chunk)
+        out = codec.decode(chunk, exact=exact)
         torch.cuda.synchronize()
         launches = launch_counts()
         print(f"{name} launches: {launches}")
-        need = ["forward_quant", "encode_words", "decode_words", "inverse_dequant"]
+        fused = not (codec.rdo or codec.deep or codec.levels > 1)
+        if fused:
+            need = ["forward_quant", "encode_words", "decode_words",
+                    "inverse_dequant"]
+        else:
+            need = ["forward_3d", "encode_words", "decode_words", "inverse_3d"]
+            check(launches["forward_quant"] == launches["inverse_dequant"] == 0,
+                  f"{name}: the fused lift kernels ran on a plain-lift path")
+            if not codec.sparse:
+                check(all(launches[k] == 1 for k in need),
+                      f"{name}: expected one launch of each of {need}")
         if name == "sparse_q50":
             need += ["compact", "expand"]
         for k in need:
             check(launches[k] > 0, f"kernel {k} was not launched on {name}")
 
         s_seg = chunk.s_seg
-        if chunk.sparse:
-            sym_enc, _, _ = pipeline.encode_sparse_phase1(
-                rgb, codec.step, codec.step, wavelet_type=codec.wavelet_type,
-                padded=padded, pp=pp)
-            sym_enc = sym_enc[:, :p]
-            nb, _ = alc3._segment_geometry(pp // 8, s_seg)
-            sym_dec = alc3._sparse_entropy_expand(
-                chunk.streams, chunk.counts, chunk.hists, p=p, s_seg=s_seg,
-                kcaps=chunk.kcaps, v_b=alc3._pick_v_seg(nb))
-        else:
-            sym_enc, _ = pipeline.encode_device(
-                rgb, codec.step, codec.step, wavelet_type=codec.wavelet_type,
-                padded=padded, hist_stride=alc3.HIST_STRIDE)
-            sym_dec = alc3._entropy_decode(
-                chunk.streams, chunk.counts, chunk.hists, padded=padded,
-                s_seg=s_seg, v_seg=alc3._pick_v_seg(chunk.n_segments))
-        check(bool(torch.equal(sym_enc, sym_dec)),
-              f"{name}: decoded symbols differ from the encoded symbols")
-        del sym_enc, sym_dec
+        if fused:
+            if chunk.sparse:
+                sym_enc, _, _ = pipeline.encode_sparse_phase1(
+                    rgb, codec.step, codec.step,
+                    wavelet_type=codec.wavelet_type, padded=padded, pp=pp)
+                sym_enc = sym_enc[:, :p]
+                nb, _ = alc3._segment_geometry(pp // 8, s_seg)
+                sym_dec = alc3._sparse_entropy_expand(
+                    chunk.streams, chunk.counts, chunk.hists, p=p,
+                    s_seg=s_seg, kcaps=chunk.kcaps, v_b=alc3._pick_v_seg(nb))
+            else:
+                sym_enc, _ = pipeline.encode_device(
+                    rgb, codec.step, codec.step,
+                    wavelet_type=codec.wavelet_type, padded=padded,
+                    hist_stride=alc3.HIST_STRIDE)
+                sym_dec = alc3._entropy_decode(
+                    chunk.streams, chunk.counts, chunk.hists, padded=padded,
+                    s_seg=s_seg, v_seg=alc3._pick_v_seg(chunk.n_segments))
+            check(bool(torch.equal(sym_enc, sym_dec)),
+                  f"{name}: decoded symbols differ from the encoded symbols")
+            del sym_enc, sym_dec
         data = Alc3Codec.to_bytes(chunk)
         with plain_kernels():
-            p_codec = Alc3Codec(codec.quality, "cdf53", sparse=chunk.sparse)
+            p_codec = Alc3Codec(**settings(codec))
             p_chunk = p_codec.encode(rgb)
             p_data = Alc3Codec.to_bytes(p_chunk)
-            p_out = p_codec.decode(p_chunk)
+            p_out = p_codec.decode(p_chunk, exact=exact)
         check(data == p_data, f"{name}: container differs from the plain pipeline's")
         check(bool(torch.equal(out, p_out)),
               f"{name}: RGB differs from the plain pipeline's")
         del p_chunk, p_out
+        if codec.deep and codec.quality == 100:
+            check(bool(torch.equal(out, rgb)),
+                  f"{name}: the exact decode differs from the input RGB")
+        twin = tuple(settings(codec, sparse=False).values())
         if chunk.sparse:
-            if dense_rgb.get(codec.quality) is None:
-                d_codec = Alc3Codec(codec.quality, "cdf53")
-                dense_rgb[codec.quality] = d_codec.decode(d_codec.encode(rgb))
-            check(bool(torch.equal(out, dense_rgb[codec.quality])),
+            if dense_rgb.get(twin) is None:
+                d_codec = Alc3Codec(**settings(codec, sparse=False))
+                dense_rgb[twin] = d_codec.decode(d_codec.encode(rgb), exact=exact)
+            check(bool(torch.equal(out, dense_rgb[twin])),
                   f"{name}: RGB differs from the dense codec's")
         else:
-            dense_rgb[codec.quality] = out
+            dense_rgb[twin] = out
         mse = float(((out.float() - rgb.float()) ** 2).mean().item())
         psnr = 10 * np.log10(255.0 ** 2 / mse) if mse else float("inf")
         ratio = rgb_np.nbytes / max(chunk.compressed_size, 1)
         kc = f", kcaps {list(chunk.kcaps)}" if chunk.sparse else ""
+        bs = (f", band steps {chunk.band_steps.tolist()}"
+              if chunk.band_steps is not None else "")
         print(f"{name}: {len(data)} container bytes, compression {ratio:.4f}x, "
-              f"PSNR {psnr:.4f} dB{kc}; equal to the plain pipeline"
+              f"PSNR {psnr:.4f} dB{kc}{bs}; equal to the plain pipeline"
               + ("; RGB equal to the dense codec's" if chunk.sparse else ""))
         by_path[name] = launches
         del out, chunk
@@ -521,7 +737,7 @@ def main() -> int:
             chunk = codec.encode(rgb)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            out = codec.decode(chunk)
+            out = codec.decode(chunk, exact=codec.deep)
             torch.cuda.synchronize()
             t_enc += t1 - t0
             t_dec += time.perf_counter() - t1
@@ -534,7 +750,8 @@ def main() -> int:
               f"memory {peak / 2**30:.3f} GiB [{card}]")
 
         # where the time goes: one roundtrip under torch.profiler
-        wall_ms, rows = device_profile(lambda: codec.decode(codec.encode(rgb)))
+        wall_ms, rows = device_profile(
+            lambda: codec.decode(codec.encode(rgb), exact=codec.deep))
         busy_ms = sum(r[1] for r in rows)
         print(f"{name} profile: one roundtrip {wall_ms:.3f} ms wall (profiled), "
               f"device kernel time {busy_ms:.3f} ms = "
@@ -552,15 +769,29 @@ def main() -> int:
         "inverse_dequant": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:375"),
         "compact": ("sparse.cu", "alice_codec_tpu/ops/pallas/sparse_kernels.py:485"),
         "expand": ("sparse.cu", "alice_codec_tpu/ops/pallas/sparse_kernels.py:697"),
+        "forward_3d": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:328"),
+        "inverse_3d": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:342"),
+        # K7b: the split spatial pass, whose counterpart is the row and
+        # column kernels inside every lift wrapper; its launches are the
+        # lift wrappers' launches on the 4K roundtrips of phase 2
+        "row_col_lift": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:138"),
     }
+    #: the path whose launches each kernel's entry reports
+    main_path = {"compact": "sparse_q50", "expand": "sparse_q50",
+                 "forward_3d": "deep_q100", "inverse_3d": "deep_q100"}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = stats[name]
+        if name == "row_col_lift":
+            launches, by = k7b_launches, {"4k_q90_and_q100": k7b_launches}
+        else:
+            launches = by_path[main_path.get(name, "sparse_q50")][name]
+            by = {path: n[name] for path, n in by_path.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"alice_codec_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": by_path["sparse_q50"][name],
-            "launches_by_path": {path: n[name] for path, n in by_path.items()},
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": by,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": None,

@@ -3,8 +3,9 @@ CPU (the kernels' plain versions): byte-identical containers, decodes in
 both inverse modes, cross-decoding through bytes and through
 ``DeviceChunk.from_numpy`` / ``to_numpy``, the committed JAX golden
 (``tests/golden/torch``, written by ``tools/golden/gen_torch_goldens.py``),
-container validation and the modes not ported yet (the sparse codec is
-held to JAX in test_torch_alc3_sparse.py)."""
+container validation, and that every mode flag the JAX package writes
+now works (the sparse codec is held to JAX in test_torch_alc3_sparse.py,
+the rdo, deep and multi-level modes in test_torch_alc3_modes.py)."""
 
 import hashlib
 import json
@@ -216,23 +217,63 @@ def test_corrupt_containers_raise(case):
         JaxCodec.from_bytes(bad)
 
 
-# ── modes not ported yet ────────────────────────────────────────
+# ── the modes ported after the dense path ──────────────────────
+#
+# These cases once checked that the port refused each mode; every mode
+# is ported now, so each checks that its mode works (the modes are held
+# to the JAX package in test_torch_alc3_modes.py).
+
+
+def _mode_roundtrip(codec, rgb):
+    chunk = codec.encode(rgb)
+    data = Alc3Codec.to_bytes(chunk)
+    codec2, chunks = Alc3Codec.from_bytes(data, device="cpu")
+    assert Alc3Codec.to_bytes(chunks) == data
+    out = codec.decode(chunk, exact=True, as_numpy=True)
+    np.testing.assert_array_equal(codec2.decode(chunks[0], exact=True,
+                                                as_numpy=True), out)
+    return chunk, data, codec2, out
 
 
 @pytest.mark.parametrize("kwargs", [
     dict(sparse=True, levels=2), dict(rdo=True), dict(levels=2),
     dict(quality=100), dict(deep=True), dict(sparse=True, deep=True)])
 def test_unported_modes_raise(kwargs):
+    codec = Alc3Codec(s_seg=S_SEG, device="cpu", **kwargs)
+    rgb = np.random.default_rng(5).integers(0, 256, (2, 8, 8, 3), np.uint8)
+    chunk, _, codec2, out = _mode_roundtrip(codec, rgb)
+    assert (chunk.sparse, chunk.levels, chunk.deep) == (
+        codec.sparse, codec.levels, codec.deep)
+    assert (chunk.band_steps is not None) == codec.rdo
+    assert (codec2.rdo, codec2.deep, codec2.levels, codec2.sparse) == (
+        codec.rdo, codec.deep, codec.levels, codec.sparse)
+    if codec.deep and codec.quality == 100:
+        np.testing.assert_array_equal(out, rgb)  # lossless
+    # batched encode / decode are the features still to come
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Alc3Codec(device="cpu", **kwargs)
+        codec.encode_batch([rgb])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        codec.decode_batch([chunk])
+
+
+#: flags byte → the codec that writes it
+_FLAG_MODES = {1: dict(rdo=True), 2: dict(deep=True), 4: dict(levels=2),
+               8: dict(levels=3), 16 | 4: dict(sparse=True, levels=2),
+               16 | 2: dict(sparse=True, deep=True)}
 
 
 @pytest.mark.parametrize("flags", [1, 2, 4, 8, 16 | 4, 16 | 2])
 def test_unported_container_flags_raise(port_run, flags):
-    data = bytearray(port_run["data"])
-    data[30] = flags  # the first chunk's flags byte
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Alc3Codec.from_bytes(bytes(data), device="cpu")
+    codec = Alc3Codec(quality=MANIFEST["quality"], s_seg=S_SEG, device="cpu",
+                      **_FLAG_MODES[flags])
+    _, data, _, _ = _mode_roundtrip(codec, _rgb())
+    assert data[30] == flags  # the first chunk's flags byte
+    # the dense container with the flags byte changed no longer parses
+    bad = bytearray(port_run["data"])
+    bad[30] = flags
+    if flags in (1, 2, 16 | 2):
+        with pytest.raises(InvalidBitstream):
+            Alc3Codec.from_bytes(bytes(bad), device="cpu")
 
 
 def test_docstring_example():

@@ -8,7 +8,7 @@ fixture of ``tests/conftest.py`` out)::
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Bit-exact everywhere.  chip_smoke.py repeats the comparisons at the main
-path's full widths."""
+paths' full widths."""
 
 import json
 from pathlib import Path
@@ -168,3 +168,99 @@ def test_sparse_goldens_on_card(cuda):
             _, chunks = Alc3Codec.from_bytes(data)
             out = codec.decode(chunks[0], as_numpy=True)
             assert hashlib.sha256(out.tobytes()).hexdigest() == ck["rgb_sha256"]
+
+
+@pytest.mark.parametrize("wt", list(WaveletType))
+@pytest.mark.parametrize("shape", [(3, 2, 2, 2), (3, 6, 38, 52), (1, 4, 70, 34)])
+def test_lift3d_kernels_match_plain(cuda, wt, shape):
+    """K7, the plain 3D lift, on int32 volumes far beyond int16: an int16
+    store between its passes would wrap here, and the plain versions
+    store int32 throughout."""
+    rng = np.random.default_rng(sum(shape) + int(wt))
+    vol = torch.as_tensor(
+        rng.integers(-(1 << 20), 1 << 20, size=shape, dtype=np.int32),
+        device=cuda)
+    n = (lift.forward_3d.launches, lift.inverse_3d.launches)
+    fwd = lift.forward_3d(vol, wt)
+    torch.cuda.synchronize()
+    assert lift.forward_3d.launches == n[0] + 1
+    assert _equal(fwd, lift.forward_3d_plain(vol, wt))
+    assert bool((fwd.abs() > 32767).any())
+    for exact in (False, True):
+        for src in (fwd, vol):
+            got = lift.inverse_3d(src, wt, exact=exact)
+            assert _equal(got, lift.inverse_3d_plain(src, wt, exact=exact))
+    assert lift.inverse_3d.launches == n[1] + 4
+    assert _equal(lift.inverse_3d(fwd, wt, exact=True), vol)
+
+
+def test_lift3d_rejects_shapes_it_cannot_take(cuda):
+    tall = torch.zeros((1, 2, 3634, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        lift.forward_3d(tall, WaveletType.CDF53)
+    many = torch.zeros((32768, 2, 2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="grid"):
+        lift.inverse_3d(many, WaveletType.CDF53)
+
+
+def test_mode_goldens_on_card(cuda):
+    """The JAX-written goldens of the sparse mode compositions (deep, rdo,
+    levels): each input re-encodes on the card to the same bytes and each
+    container decodes to the JAX decodes, in both inverse modes."""
+    import hashlib
+
+    from chip_smoke import golden_input
+
+    mdir = GOLDEN / "modes"
+    cases = json.loads((mdir / "manifest.json").read_text())["cases"]
+    for spec in cases.values():
+        codec = Alc3Codec(**spec["codec"])
+        chunk = codec.encode(golden_input(spec["kind"], spec["seed"],
+                                          spec["shape"]))
+        data = (mdir / spec["file"]).read_bytes()
+        assert list(chunk.kcaps) == spec["kcaps"]
+        assert Alc3Codec.to_bytes(chunk) == data
+        _, chunks = Alc3Codec.from_bytes(data)
+        for exact, key in ((False, "rgb_sha256"), (True, "rgb_exact_sha256")):
+            out = codec.decode(chunks[0], exact=exact, as_numpy=True)
+            assert hashlib.sha256(out.tobytes()).hexdigest() == spec[key]
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(quality=100, wavelet="haar"), dict(quality=85, rdo=True),
+    dict(quality=90, wavelet="cdf97", levels=3)])
+def test_dense_modes_on_card_match_cpu(cuda, kwargs):
+    """The dense deep, rdo and multi-level codecs on the card write the
+    CPU's bytes and decode to the CPU's RGB."""
+    from chip_smoke import golden_input
+
+    rgb = golden_input("chunk", 9, (4, 16, 16))
+    on_card = Alc3Codec(s_seg=8, **kwargs)
+    on_cpu = Alc3Codec(s_seg=8, device="cpu", **kwargs)
+    card_chunk, cpu_chunk = on_card.encode(rgb), on_cpu.encode(rgb)
+    assert Alc3Codec.to_bytes(card_chunk) == Alc3Codec.to_bytes(cpu_chunk)
+    for exact in (False, True):
+        np.testing.assert_array_equal(
+            on_card.decode(card_chunk, exact=exact, as_numpy=True),
+            on_cpu.decode(cpu_chunk, exact=exact, as_numpy=True))
+
+
+def test_split_frame_lift_kernels_match_plain(cuda, monkeypatch):
+    """The fused kernels' split-frame form (int16 stored between the W and
+    H passes, as the TPU's split spatial path stores it at 4K), forced at
+    a small shape by cutting the frame budget, on inputs whose spatial
+    intermediates leave int16."""
+    monkeypatch.setattr(lift, "_FRAME_BYTES", 1024)
+    shape = (3, 4, 16, 256)
+    assert lift.split_frame(*shape[2:])
+    rng = np.random.default_rng(23)
+    vol = torch.as_tensor(rng.integers(-30000, 30000, size=shape, dtype=np.int16),
+                          device=cuda)
+    sym = torch.as_tensor(rng.integers(0, 256, size=shape, dtype=np.uint8),
+                          device=cuda)
+    for wt in WaveletType:
+        assert _equal(lift.forward_quant(vol, wt, 160, 160),
+                      lift.forward_quant_plain(vol, wt, 160, 160))
+        for exact in (False, True):
+            assert _equal(lift.inverse_dequant(sym, wt, 160, exact=exact),
+                          lift.inverse_dequant_plain(sym, wt, 160, exact=exact))
