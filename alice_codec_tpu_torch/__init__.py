@@ -4,9 +4,14 @@ The port of ``alice_codec_tpu`` (JAX/Pallas on a TPU), which stays the
 reference.  This package imports neither JAX nor the JAX package.  It
 covers the ALC3 chunk codec (:class:`Alc3Codec`) in every mode — dense
 or sparse, fixed-step or AnalyticalRDO, 8-bit or deep 16-bit symbols,
-1-4 decomposition levels — except batched encode / decode: its
-containers are byte-identical to the JAX package's, and each package
-decodes the other's.
+1-4 decomposition levels — and the two compat wires: the
+reference-compatible single-chunk `.alc` (:class:`FrameEncoder` /
+:class:`FrameDecoder`, host rANS) and the batched ALC2
+(:mod:`.parallel`: ``BatchFrameEncoder`` / ``BatchFrameDecoder``, N-lane
+rANS on the host or the card).  Its containers are byte-identical to the
+JAX package's, and each package decodes the other's.  Not ported yet:
+``Alc3Codec.encode_batch`` / ``decode_batch``, streaming and multi-device
+sharding.
 
 Entry points run on the CUDA card unless given ``device="cpu"``; on the
 CPU every kernel is replaced by its plain PyTorch version.
@@ -22,6 +27,15 @@ from .errors import (
     InvalidDimensions,
     InvalidQuantStep,
 )
+from .ops.rans import (
+    FrequencyTable,
+    InterleavedRansDecoder,
+    InterleavedRansEncoder,
+    RansDecoder,
+    RansEncoder,
+    SimdRansDecoder,
+)
+from .pipeline import EncodedChunk, FrameDecoder, FrameEncoder
 
 __all__ = [
     "Alc3Codec",
@@ -29,10 +43,19 @@ __all__ = [
     "DEFAULT_S_SEG",
     "DeviceChunk",
     "DimensionOverflow",
+    "EncodedChunk",
+    "FrameDecoder",
+    "FrameEncoder",
+    "FrequencyTable",
+    "InterleavedRansDecoder",
+    "InterleavedRansEncoder",
     "InvalidBitstream",
     "InvalidBufferSize",
     "InvalidDimensions",
     "InvalidQuantStep",
-    "WaveletType",
     "quality_to_step",
+    "RansDecoder",
+    "RansEncoder",
+    "SimdRansDecoder",
+    "WaveletType",
 ]

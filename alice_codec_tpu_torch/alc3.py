@@ -644,9 +644,14 @@ class Alc3Codec:
                     hist_stride=HIST_STRIDE)
                 del coeffs
             else:
-                dev_stage = encode_deep_device if self.deep else encode_device
-                planes, hists = dev_stage(rgb, self.step, self.step,
-                                          hist_stride=HIST_STRIDE, **stage)
+                if self.deep:
+                    planes, hists = encode_deep_device(
+                        rgb, self.step, self.step, hist_stride=HIST_STRIDE,
+                        **stage)
+                else:
+                    planes, hists = encode_device(
+                        rgb, self.step, self.step, hist_stride=HIST_STRIDE,
+                        interleaved=True, **stage)
             v_seg = _pick_v_seg(_segment_geometry(p, self.s_seg)[0])
             streams, counts, hists = _entropy_encode(
                 planes, hists, s_seg=self.s_seg, v_seg=v_seg)
@@ -689,7 +694,7 @@ class Alc3Codec:
             active = (tuple(c for c in range(3) if chunk.kcaps[c] > 0)
                       if chunk.sparse else None)
             rgb = decode_device(planes, steps, levels=chunk.levels,
-                                active=active, **stage)
+                                active=active, interleaved=True, **stage)
         return rgb.cpu().numpy() if as_numpy else rgb
 
     def encode_batch(self, rgb_batch, **kwargs):

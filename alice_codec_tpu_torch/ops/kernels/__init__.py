@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from .lift import forward_3d, forward_quant, inverse_3d, inverse_dequant
 from .rans3 import decode_words, encode_words
+from .rans_nway import decode_nway, encode_nway
 from .sparse import compact, expand
 
 __all__ = ["WRAPPERS", "reset_launches", "launch_counts"]
@@ -23,6 +24,8 @@ WRAPPERS = {
     "expand": expand,
     "forward_3d": forward_3d,
     "inverse_3d": inverse_3d,
+    "encode_nway": encode_nway,
+    "decode_nway": decode_nway,
 }
 
 

@@ -26,6 +26,13 @@ subgrid of indices ≡ 0 (mod 2^k) on every axis with neighbour distance
 and lifting it is a level-0 lift of the view — the same values as the
 JAX package's rolls by 2^k under its ``_level_active`` masks, without
 touching the rest of the volume.
+
+The reference layout (``[low | high]`` along each axis, the `.alc` and
+ALC2 wires; reference src/wavelet.rs:220-233) holds the same values: on
+even dimensions it is a fixed permutation of the interleaved one
+(:func:`deinterleave_3d` / :func:`interleave_3d`), so its forward and
+inverse transforms (:func:`forward_3d` / :func:`inverse_3d`) are the
+interleaved ones composed with that permutation.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ import torch
 from ..core import WaveletType
 
 __all__ = ["LIFTING_STEPS", "forward_1d_inter", "inverse_1d_inter",
-           "forward_3d_inter", "inverse_3d_inter"]
+           "forward_3d_inter", "inverse_3d_inter", "deinterleave_3d",
+           "interleave_3d", "forward_3d", "inverse_3d"]
 
 # (coeff, predict) pairs per filter; coeff scaled by 2^12.
 LIFTING_STEPS: dict[WaveletType, tuple[tuple[int, bool], ...]] = {
@@ -190,3 +198,43 @@ def inverse_3d_inter(volume: torch.Tensor, wavelet: WaveletType,
             _check_axis(volume, ax, k)
         volume = _lift_subgrid(volume, steps, k, (-3, -2, -1), (-3, -2, -1))
     return volume
+
+
+def _halves(x: torch.Tensor) -> tuple[int, int, int]:
+    t, h, w = x.shape[-3:]
+    if t % 2 or h % 2 or w % 2:
+        raise ValueError(f"T, H and W must be even, got {(t, h, w)}")
+    return t // 2, h // 2, w // 2
+
+
+def deinterleave_3d(x: torch.Tensor) -> torch.Tensor:
+    """Interleaved → reference layout of ``(C, T, H, W)`` (even dims):
+    along each axis the even indices (low band) move to the first half
+    and the odd ones (high band) to the second — one copy of ``x``, of
+    any dtype: (C, T/2, 2, H/2, 2, W/2, 2) → (C, 2, T/2, 2, H/2, 2, W/2)."""
+    t2, h2, w2 = _halves(x)
+    c = x.shape[0]
+    v = x.reshape(c, t2, 2, h2, 2, w2, 2).permute(0, 2, 1, 4, 3, 6, 5)
+    return v.reshape(x.shape)
+
+
+def interleave_3d(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`deinterleave_3d`: reference → interleaved."""
+    t2, h2, w2 = _halves(x)
+    c = x.shape[0]
+    v = x.reshape(c, 2, t2, 2, h2, 2, w2).permute(0, 2, 1, 4, 3, 6, 5)
+    return v.reshape(x.shape)
+
+
+def forward_3d(volume: torch.Tensor, wavelet: WaveletType) -> torch.Tensor:
+    """Single-level 3D forward in the reference layout on int32
+    ``(C, T, H, W)`` with even dims (rows, columns, then time; reference
+    src/wavelet.rs:392-438)."""
+    return deinterleave_3d(forward_3d_inter(volume, wavelet))
+
+
+def inverse_3d(volume: torch.Tensor, wavelet: WaveletType, *,
+               exact: bool = False) -> torch.Tensor:
+    """Inverse of :func:`forward_3d` (time, columns, then rows;
+    src/wavelet.rs:441-484): compat ±1 replay, or exact undo."""
+    return inverse_3d_inter(interleave_3d(volume), wavelet, exact=exact)

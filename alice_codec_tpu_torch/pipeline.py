@@ -1,6 +1,23 @@
-"""Device stages of the ALC3 codec (PyTorch port of the interleaved
-branches of ``alice_codec_tpu/pipeline.py``) and the per-plane container
-header.
+"""Device stages of the codec, the `.alc` container and the single-chunk
+``FrameEncoder`` / ``FrameDecoder`` (PyTorch port of
+``alice_codec_tpu/pipeline.py``).
+
+Two coefficient layouts, as in the JAX package (its ``interleaved``
+keyword): ALC3 keeps the interleaved one (low band at even indices, high
+at odd), the `.alc` and ALC2 wires the reference ``[low | high]`` one.
+On the padded, always-even dims the reference layout is a fixed
+permutation of the interleaved one (``ops/wavelet.deinterleave_3d``), so
+both run the same lift kernels:
+
+* encode in the reference layout: the fused lift + quantize kernel, then
+  one deinterleaving copy of the uint8 symbols (int16 storage between
+  its passes is exact for 8-bit input);
+* decode in the reference layout: interleave the uint8 symbols back,
+  dequantize in int32, the plain level-0 3D inverse lift kernel (int32
+  throughout), crop, the int16 truncating cast, inverse colour — the
+  JAX package's unfused int32 decode.
+
+The ALC3 stages (interleaved layout):
 
 * encode: uint8 RGB (T, H, W, 3) → YCoCg-R → edge pad (int16) → fused
   lift + quantize + zigzag kernel → uint8 symbols (3, P) and row-sampled
@@ -20,22 +37,33 @@ header.
 
 from __future__ import annotations
 
+import os
 import struct
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from .core import WaveletType
+from ._device import resolve_device
+from .core import WaveletType, checked_pixel_count, padded_dims, quality_to_step
+from .errors import InvalidBitstream, InvalidBufferSize, InvalidDimensions
 from .ops import color, quant, wavelet
+from .ops.rans import RANS32_L, FrequencyTable, RansDecoder, RansEncoder
 from .ops.kernels.lift import (_FRAME_BYTES, forward_3d, forward_quant,
                                inverse_3d, inverse_dequant)
 from .ops.kernels.sparse import tile_rows
 
-__all__ = ["ChannelHeader", "encode_device", "decode_device",
-           "transform_moments_device", "encode_bands_device",
-           "decode_bands_device", "encode_deep_device", "decode_deep_device",
-           "encode_sparse_phase1", "encode_deep_sparse_phase1"]
+__all__ = ["ChannelHeader", "EncodedChunk", "FrameEncoder", "FrameDecoder",
+           "encode_device", "decode_device", "transform_moments_device",
+           "encode_bands_device", "decode_bands_device", "encode_deep_device",
+           "decode_deep_device", "encode_sparse_phase1",
+           "encode_deep_sparse_phase1"]
+
+_MAGIC = b"ALCC"
+_FORMAT_VERSION = 1
+_FIXED_HEADER_BYTES = 18
+_CHANNEL_HEADER_BYTES = 1040
 
 # The tile budget of the JAX package's Pallas lift kernels
 # (lift_kernels.py:66): with _FRAME_BYTES it decides which shapes take
@@ -160,13 +188,30 @@ def _symbols(rgb: torch.Tensor, step, dead_zone, *, wavelet_type, padded,
     return sym.reshape(3, pf * ph * pw)
 
 
+def _check_reference_levels(levels: int) -> None:
+    if levels != 1:
+        raise ValueError("the reference layout (interleaved=False) is "
+                         f"single-level; got levels={levels}")
+
+
 def encode_device(rgb: torch.Tensor, step: int, dead_zone: int, *,
                   wavelet_type: WaveletType, padded, levels: int = 1,
-                  hist_stride: int = 1):
+                  hist_stride: int = 1, interleaved: bool = False):
     """Encode stage: ``rgb`` uint8 (T, H, W, 3) on the working device →
-    ``(symbols (3, P) uint8, histograms (3, 256) int64)``."""
-    symbols = _symbols(rgb, step, dead_zone, wavelet_type=wavelet_type,
-                       padded=padded, levels=levels)
+    ``(symbols (3, P) uint8, histograms (3, 256) int64)``.
+
+    ``interleaved=True``: ALC3's layout (:func:`_symbols`).
+    ``interleaved=False``: the reference layout of the `.alc` and ALC2
+    wires (single level): the fused lift + quantize kernel, then one
+    deinterleaving copy of the symbols."""
+    if interleaved:
+        symbols = _symbols(rgb, step, dead_zone, wavelet_type=wavelet_type,
+                           padded=padded, levels=levels)
+    else:
+        _check_reference_levels(levels)
+        sym = forward_quant(_color_pad(rgb, padded), wavelet_type, step,
+                            dead_zone)
+        symbols = wavelet.deinterleave_3d(sym).reshape(3, -1)
     return symbols, _histograms(symbols, hist_stride)
 
 
@@ -240,11 +285,18 @@ def decode_deep_device(planes: torch.Tensor, step: torch.Tensor, *,
 def decode_device(symbols: torch.Tensor, step: torch.Tensor, *,
                   wavelet_type: WaveletType, dims, padded,
                   exact: bool = False, levels: int = 1,
-                  active=None) -> torch.Tensor:
+                  active=None, interleaved: bool = False) -> torch.Tensor:
     """Decode stage: symbols (3, P) uint8 → RGB (T, H, W, 3) uint8.
     ``step``: per-channel (3,) quant steps.  ``exact`` selects the
     exact-undo inverse; the default replays the reference's
-    negated-coefficient inverse.  Where the JAX package runs its fused
+    negated-coefficient inverse.
+
+    ``interleaved=False``: symbols in the reference layout (single
+    level): interleave them back, dequantize and :func:`_inverse_rgb`
+    (int32 throughout, then the truncating cast) — the JAX package's
+    decode of the `.alc` and ALC2 wires.
+
+    ``interleaved=True`` (ALC3): where the JAX package runs its fused
     kernels (one level, :func:`_tpu_fused`): the fused dequantize +
     inverse lift kernel, which stores int16 between its passes;
     elsewhere dequantize and :func:`_inverse_rgb` (int32 throughout,
@@ -257,6 +309,12 @@ def decode_device(symbols: torch.Tensor, step: torch.Tensor, *,
     (bit-exact)."""
     w, h, t = dims
     pw, ph, pf = padded
+    if not interleaved:
+        _check_reference_levels(levels)
+        sym = wavelet.interleave_3d(symbols.reshape(3, pf, ph, pw))
+        q = quant.from_symbols(sym)
+        return _inverse_rgb(quant.dequantize(q, step.reshape(3, 1, 1, 1)),
+                            wavelet_type, dims, 1, exact)
     if levels > 1 or not _tpu_fused(padded):
         q = quant.from_symbols(symbols).reshape(3, pf, ph, pw)
         return _inverse_rgb(quant.dequantize(q, step.reshape(3, 1, 1, 1)),
@@ -350,3 +408,258 @@ class ChannelHeader:
         compressed_len, step, dz, num_symbols = struct.unpack_from("<IiiI", data, 0)
         hist = np.frombuffer(data, np.uint32, count=256, offset=16).copy()
         return cls(compressed_len, step, dz, num_symbols, hist)
+
+
+@dataclass
+class EncodedChunk:
+    """Compressed RGB chunk in the reference-compatible `.alc` container
+    (reference ``EncodedChunk``, src/pipeline.rs:172-313)::
+
+        "ALCC" | version=1 | wavelet u8 | width u32 | height u32 | frames u32
+        3 × ChannelHeader (1040 B each) | the three channels' rANS streams
+
+    Its bytes equal the JAX package's for the same input, and each
+    package decodes the other's."""
+
+    width: int
+    height: int
+    frames: int
+    wavelet_type: WaveletType
+    channel_headers: list[ChannelHeader]
+    compressed_data: bytes
+
+    @property
+    def compressed_size(self) -> int:
+        """Total size of the compressed payload in bytes."""
+        return len(self.compressed_data)
+
+    @property
+    def wavelet(self) -> str:
+        """Wavelet name string ("cdf53" | "cdf97" | "haar")."""
+        return self.wavelet_type.name_str
+
+    def to_bytes(self) -> bytes:
+        """Serialize to a self-contained `.alc` byte buffer (src/pipeline.rs:200-226)."""
+        buf = bytearray()
+        buf += _MAGIC
+        buf.append(_FORMAT_VERSION)
+        buf.append(int(self.wavelet_type))
+        buf += struct.pack("<III", self.width, self.height, self.frames)
+        for ch in self.channel_headers:
+            buf += ch.to_bytes()
+        buf += self.compressed_data
+        return bytes(buf)
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "EncodedChunk":
+        """Parse `.alc` bytes (validation per src/pipeline.rs:235-313)."""
+        data = bytes(data)
+        min_len = _FIXED_HEADER_BYTES + 3 * _CHANNEL_HEADER_BYTES
+        if len(data) < min_len:
+            raise InvalidBitstream(
+                f"data too short: {len(data)} bytes (minimum {min_len})")
+        if data[0:4] != _MAGIC:
+            raise InvalidBitstream("bad magic (expected ALCC)")
+        version = data[4]
+        if version != _FORMAT_VERSION:
+            raise InvalidBitstream(
+                f"unsupported version: {version} (expected {_FORMAT_VERSION})")
+        wavelet_type = WaveletType.from_u8(data[5])
+        width, height, frames = struct.unpack_from("<III", data, 6)
+        headers = []
+        off = _FIXED_HEADER_BYTES
+        total_compressed = 0
+        for _ in range(3):
+            hdr = ChannelHeader.from_bytes(data[off : off + _CHANNEL_HEADER_BYTES])
+            headers.append(hdr)
+            off += _CHANNEL_HEADER_BYTES
+            total_compressed += hdr.compressed_len
+        if len(data) < off + total_compressed:
+            raise InvalidBitstream(
+                f"truncated payload: need {off + total_compressed - len(data)} "
+                f"more bytes")
+        payload = data[off : off + total_compressed]
+        return cls(width, height, frames, wavelet_type, headers, payload)
+
+    def __repr__(self) -> str:
+        return (f"EncodedChunk({self.width}x{self.height}x{self.frames}, "
+                f"{self.compressed_size} bytes, {self.wavelet})")
+
+
+def _decode_channel(stream: bytes, n_symbols: int, histogram, *,
+                    strict: bool = False) -> np.ndarray:
+    """rANS-decode one channel, detecting which table coded it.
+
+    Decode with the reference-exact table first and check the rANS
+    final-state invariant (a correct decode ends with state == RANS32_L
+    and every byte consumed); on violation the encoder used the
+    sanitized table (its overflow retry), so decode with that.  When
+    neither table satisfies the invariant the stream is corrupt:
+    ``strict`` raises ``InvalidBitstream``, the default returns the
+    reference-table symbols (the reference decoder checks nothing,
+    src/rans.rs:351-381)."""
+    table = FrequencyTable.from_histogram(histogram)
+    dec = RansDecoder(stream)
+    syms = dec.decode_n(n_symbols, table)
+    if dec.state == RANS32_L and dec.pos == len(stream):
+        return syms
+    table_s = FrequencyTable.from_histogram(histogram, sanitize=True)
+    if not np.array_equal(table_s.freqs, table.freqs):
+        dec = RansDecoder(stream)
+        syms_s = dec.decode_n(n_symbols, table_s)
+        if dec.state == RANS32_L and dec.pos == len(stream):
+            return syms_s
+    if strict:
+        raise InvalidBitstream(
+            "rANS final-state invariant violated: corrupt channel stream")
+    return syms
+
+
+def _empty_chunk(width: int, height: int, frames: int,
+                 wt: WaveletType) -> EncodedChunk:
+    return EncodedChunk(width, height, frames, wt,
+                        [ChannelHeader() for _ in range(3)], b"")
+
+
+def _map3(fn) -> list:
+    """``fn`` over the three channels, in three threads where the host
+    has the cores (the native coder releases the GIL)."""
+    if (os.cpu_count() or 1) >= 2:
+        with ThreadPoolExecutor(3) as pool:
+            return list(pool.map(fn, range(3)))
+    return [fn(ch) for ch in range(3)]
+
+
+def as_uint8_tensor(rgb, device: torch.device) -> torch.Tensor:
+    """An RGB array or tensor as a uint8 tensor on ``device``."""
+    if isinstance(rgb, torch.Tensor):
+        return rgb.to(device=device, dtype=torch.uint8)
+    arr = np.ascontiguousarray(rgb, np.uint8)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
+
+
+class FrameEncoder:
+    """Single-chunk encoder to the `.alc` container (reference
+    src/pipeline.rs:335-508, API per src/python.rs:365-436).
+
+    The encode stage (colour, pad, lift, quantize, zigzag, histograms)
+    runs on ``device`` (the CUDA card unless given another, such as
+    ``"cpu"``); the three channels' serial rANS streams are coded on the
+    host by the native coder, one thread each.
+    """
+
+    def __init__(self, quality: int = 90, wavelet: str | WaveletType = "cdf53",
+                 *, device=None):
+        self.quality = int(quality)
+        self.wavelet_type = (wavelet if isinstance(wavelet, WaveletType)
+                             else WaveletType.from_name(wavelet))
+        self.device = resolve_device(device)
+
+    @classmethod
+    def with_wavelet(cls, quality: int, wavelet_type: WaveletType,
+                     *, device=None) -> "FrameEncoder":
+        return cls(quality, wavelet_type, device=device)
+
+    def encode(self, rgb_frames, width: int, height: int,
+               frames: int) -> EncodedChunk:
+        """Encode interleaved RGB bytes ``[R0,G0,B0, R1,G1,B1, ...]``: a
+        flat uint8 array (the reference layout) or ``(T, H, W, 3)``, as
+        numpy or a tensor."""
+        w, h, f = int(width), int(height), int(frames)
+        n_pixels = checked_pixel_count(w, h, f)
+        size = (rgb_frames.numel() if isinstance(rgb_frames, torch.Tensor)
+                else np.asarray(rgb_frames).size)
+        if n_pixels == 0:
+            if size != 0:
+                raise InvalidBufferSize(0, size)
+            return _empty_chunk(w, h, f, self.wavelet_type)
+        if w == 0 or h == 0:
+            raise InvalidDimensions(w, h)
+        if size != n_pixels * 3:
+            raise InvalidBufferSize(n_pixels * 3, size)
+
+        rgb = as_uint8_tensor(rgb_frames, self.device).reshape(f, h, w, 3)
+        padded = padded_dims(w, h, f)
+        padded_pixels = padded[0] * padded[1] * padded[2]
+        step = quality_to_step(self.quality)
+        dead_zone = step  # Quantizer::new semantics (src/quant.rs:70-75)
+        symbols_dev, hists_dev = encode_device(
+            rgb, step, dead_zone, wavelet_type=self.wavelet_type,
+            padded=padded, interleaved=False)
+        symbols = symbols_dev.cpu().numpy()
+        hists = hists_dev.cpu().numpy().astype(np.uint32)
+
+        def encode_channel(ch: int) -> bytes:
+            # The reference-exact table first: whenever the reference's
+            # coder can represent the stream, the bytes are its bytes.  A
+            # slot past PROB_SCALE (where the reference would corrupt the
+            # stream) re-encodes with the sanitized table; the decoder
+            # tells the two apart by the final-state invariant.
+            table = FrequencyTable.from_histogram(hists[ch])
+            enc = RansEncoder()
+            enc.encode_symbols(symbols[ch], table)
+            if enc.overflowed:
+                table = FrequencyTable.from_histogram(hists[ch], sanitize=True)
+                enc = RansEncoder()
+                enc.encode_symbols(symbols[ch], table)
+            return enc.finish()
+
+        streams = _map3(encode_channel)
+        headers = [ChannelHeader(compressed_len=len(s), quant_step=step,
+                                 quant_dead_zone=dead_zone,
+                                 num_symbols=padded_pixels,
+                                 histogram=hists[ch])
+                   for ch, s in enumerate(streams)]
+        return EncodedChunk(w, h, f, self.wavelet_type, headers,
+                            b"".join(streams))
+
+
+class FrameDecoder:
+    """Single-chunk `.alc` decoder (reference src/pipeline.rs:519-631):
+    the channels' rANS streams decode on the host (native coder, one
+    thread each), the rest on ``device`` (the CUDA card unless given
+    another)."""
+
+    def __init__(self, *, device=None) -> None:
+        self.device = resolve_device(device)
+
+    def decode(self, chunk: EncodedChunk, *, exact: bool = False,
+               strict: bool = False) -> np.ndarray:
+        """Decode a chunk to flat interleaved RGB uint8 (numpy).
+
+        ``exact=True`` uses the exact-undo wavelet inverse; the default
+        matches the reference decoder bit for bit.  ``strict=True``
+        raises ``InvalidBitstream`` when a channel stream fails the rANS
+        final-state invariant instead of returning garbage pixels."""
+        w, h, f = int(chunk.width), int(chunk.height), int(chunk.frames)
+        n_pixels = checked_pixel_count(w, h, f)
+        if n_pixels == 0:
+            return np.empty(0, np.uint8)
+        padded = padded_dims(w, h, f)
+        padded_pixels = padded[0] * padded[1] * padded[2]
+        steps = np.empty(3, np.int32)
+        streams = []
+        offset = 0
+        for ch, hdr in enumerate(chunk.channel_headers):
+            if hdr.num_symbols != padded_pixels:
+                raise InvalidBitstream(
+                    f"channel {ch}: num_symbols {hdr.num_symbols} != "
+                    f"padded_pixels {padded_pixels}")
+            end = offset + hdr.compressed_len
+            if end > len(chunk.compressed_data):
+                raise InvalidBitstream(f"channel {ch}: compressed data overrun")
+            streams.append(chunk.compressed_data[offset:end])
+            offset = end
+            steps[ch] = hdr.quant_step
+
+        symbols = np.stack(_map3(lambda ch: _decode_channel(
+            streams[ch], padded_pixels, chunk.channel_headers[ch].histogram,
+            strict=strict)))
+        rgb = decode_device(
+            torch.from_numpy(symbols).to(self.device),
+            torch.from_numpy(steps).to(self.device),
+            wavelet_type=chunk.wavelet_type, dims=(w, h, f), padded=padded,
+            exact=exact, interleaved=False)
+        return rgb.cpu().numpy().reshape(-1)

@@ -36,9 +36,22 @@ Phases (any failure raises and exits non-zero before the last line):
    ``Alc3Codec(90, "cdf53", levels=3)``; each container and RGB equal
    those of the same pipeline run with the plain versions on the card,
    and each sparse path's RGB equals the dense codec's at its settings;
+   then the two compat wires: the `.alc` single chunk
+   (``FrameEncoder(90, "cdf53")`` → ``EncodedChunk`` bytes →
+   ``FrameDecoder``), whose container and RGB equal the plain pipeline's,
+   and the ALC2 batch of ``bench.py``'s ``config4_alc_batched_decode`` (4
+   chunks of 64×1080×1920, ``BatchFrameEncoder(90, "cdf53",
+   n_lanes=4096, device_entropy=True)`` → ``EncodedChunkStream`` bytes →
+   ``BatchFrameDecoder(device_entropy=True)``), whose payload and RGB
+   equal the host-entropy coder's;
 5. timings (chunks/s, peak memory) of each path, one roundtrip of each
    under torch.profiler (device time by kernel), the ``kernels`` JSON
    line and the final ``{"ok": true, ...}`` line.
+
+Phase 2 also holds the N-lane rANS kernels (K8 / K9) against their plain
+versions on every (chunk, channel) stream of that ALC2 batch plus a
+stream under a skewed table, and phase 3 decodes and re-encodes the 48
+C++ and the self `.alc` fixtures of ``tests/golden`` on the card.
 
 Needs no network and imports neither JAX nor the JAX package.
 """
@@ -51,11 +64,13 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 T, H, W = 64, 1080, 1920   # the main paths' chunk
+ALC2_CHUNKS, ALC2_LANES = 4, 4096  # bench.py config4_alc_batched_decode
 T4K, H4K, W4K = 16, 2160, 3840  # the 4K check's chunk
 QUALITY = 90
 SPARSE_Q = (90, 50)        # the north star, and a quality with sparse planes
@@ -108,6 +123,8 @@ def max_abs_err(a, b) -> int:
     check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
+    if a.numel() > 1 << 28 and a.shape[0] > 1:  # int64 copies one slice at a time
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
@@ -146,7 +163,9 @@ def plain_kernels():
     """Route the codec's kernel calls to the plain versions (on the card)
     for the span of the block."""
     from alice_codec_tpu_torch import alc3, pipeline
-    from alice_codec_tpu_torch.ops.kernels import lift, rans3, sparse
+    from alice_codec_tpu_torch.ops import rans_device
+    from alice_codec_tpu_torch.ops.kernels import lift, rans3, rans_nway, sparse
+    from alice_codec_tpu_torch.parallel import batch
 
     swaps = [
         (pipeline, "forward_quant", lift.forward_quant_plain),
@@ -157,6 +176,8 @@ def plain_kernels():
         (alc3, "decode_words", rans3.decode_words_plain),
         (alc3, "compact", sparse.compact_plain),
         (alc3, "expand", sparse.expand_plain),
+        (rans_device, "encode_nway", rans_nway.encode_nway_plain),
+        (batch, "decode_nway", rans_nway.decode_nway_plain),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -171,14 +192,24 @@ def plain_kernels():
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from alice_codec_tpu_torch import Alc3Codec, WaveletType, _build, quality_to_step
+    from alice_codec_tpu_torch import (
+        Alc3Codec, EncodedChunk, FrameDecoder, FrameEncoder, FrequencyTable,
+        WaveletType, _build, native, quality_to_step)
     from alice_codec_tpu_torch import alc3, pipeline
+    from alice_codec_tpu_torch.ops.kernels.rans_nway import (
+        decode_nway, decode_nway_plain, encode_nway, encode_nway_plain)
+    from alice_codec_tpu_torch.ops.rans_device import pack_device
+    from alice_codec_tpu_torch.parallel import (
+        BatchFrameDecoder, BatchFrameEncoder, EncodedChunkStream)
+    from alice_codec_tpu_torch.parallel.batch import _lane_sym_count
+    from alice_codec_tpu_torch.utils.golden import golden_rgb
     from alice_codec_tpu_torch.ops.kernels import launch_counts, lift, reset_launches
     from alice_codec_tpu_torch.ops.kernels.lift import (
         forward_3d, forward_3d_plain, forward_quant, forward_quant_plain,
@@ -198,12 +229,18 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    # the other chunks of the ALC2 batch, made on the host meanwhile
+    pool = ThreadPoolExecutor(ALC2_CHUNKS - 1)
+    more_chunks = [pool.submit(_test_chunk, T, H, W, seed=i)
+                   for i in range(1, ALC2_CHUNKS)]
 
     # ── 1. build ────────────────────────────────────────────────
     t0 = time.perf_counter()
     for path in _build.build():
         print(f"built {path.name}")
-    print(f"build: {time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    native.get_lib()
+    print(f"build: {time.perf_counter() - t0:.1f} s (parallel nvcc; g++ for "
+          f"the host rANS coder)")
 
     # ── 2. kernels vs plain versions ────────────────────────────
     wt = WaveletType.CDF53
@@ -354,7 +391,7 @@ def main() -> int:
     # K2 / K3 at full width: all 3·512 segments of the chunk
     symbols, hists = pipeline.encode_device(
         rgb, step, step, wavelet_type=wt, padded=padded,
-        hist_stride=alc3.HIST_STRIDE)
+        hist_stride=alc3.HIST_STRIDE, interleaved=True)
     hists = alc3._covered_hist(hists, symbols)
     n_seg, m = alc3._segment_geometry(p, alc3.DEFAULT_S_SEG)
     freqs, cums = freq_table_device(
@@ -543,6 +580,102 @@ def main() -> int:
     del rgb4k, out4, out4d, d4, lossless
     torch.cuda.empty_cache()
 
+    # K8 / K9 at full width: every (chunk, channel) stream of the ALC2 batch
+    # (4 x 3 streams of 4096 lanes x 32,400 steps, each under its own
+    # sanitized table), plus the Y plane of chunk 0 under a skewed table
+    # (symbol 0 dominant) that forces two-byte emits — one launch each
+    # against one call of the plain version on the same streams
+    t0 = time.perf_counter()
+    batch_np = np.stack([rgb_np] + [f.result() for f in more_chunks])
+    pool.shutdown()
+    batch_dev = torch.as_tensor(batch_np, device=dev)
+    b_enc = BatchFrameEncoder(QUALITY, "cdf53", n_lanes=ALC2_LANES,
+                              device_entropy=True)
+    sym_b, hist_b = b_enc.encode_device_stage(batch_dev)
+    n_str = ALC2_CHUNKS * 3
+    n_sym = _lane_sym_count(p, ALC2_LANES)
+    check(n_sym == sym_b.shape[-1] == p, f"ALC2 symbols per channel {n_sym}")
+    steps_n = n_sym // ALC2_LANES
+    skew = np.ones(256, np.uint32)
+    skew[0] = 1 << 30
+    tabs = [FrequencyTable.from_histogram(h, sanitize=True)
+            for h in hist_b.reshape(n_str, 256).cpu().numpy().astype(np.uint32)]
+    tabs.append(FrequencyTable.from_histogram(skew, sanitize=True))
+    syms = torch.cat([sym_b.reshape(n_str, p), sym_b[0, :1]])
+    f_t = torch.as_tensor(np.stack([tb.freqs for tb in tabs]).astype(np.int32),
+                          device=dev)
+    c_t = torch.as_tensor(np.stack([tb.cums for tb in tabs]).astype(np.int32),
+                          device=dev)
+    lut_t = torch.as_tensor(np.stack([tb.cum_to_sym for tb in tabs]), device=dev)
+    del sym_b
+
+    def events_ms(fn):
+        """(result, device ms) of one call of ``fn``, by CUDA events."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        r = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return r, start.elapsed_time(end)
+
+    k8 = encode_nway(syms, f_t, c_t, n_lanes=ALC2_LANES)
+    p8, k8_plain_ms = events_ms(
+        lambda: encode_nway_plain(syms, f_t, c_t, n_lanes=ALC2_LANES))
+    err = max(max_abs_err(a, b) for a, b in zip(k8, p8))
+    check(err == 0, f"encode_nway differs from its plain version by {err}")
+    pairs = int((k8[1][-1] == 2).sum().item())
+    check(pairs > 0, "the skewed stream emitted no byte pairs")
+    del p8
+    parts, lens_l, tot_l = [], [], []
+    for i in range(n_str + 1):
+        pay, ln, tot = pack_device(k8[0][i], k8[1][i], k8[2][i], n=n_sym,
+                                   n_lanes=ALC2_LANES)
+        parts.append(pay[: int(tot)])
+        lens_l.append(ln)
+        tot_l.append(int(tot))
+    del k8, pay
+    payload_t = torch.cat(parts)
+    del parts
+    lens_t = torch.stack(lens_l)
+    starts_t = torch.cumsum(lens_t.long(), 1) - lens_t.long()
+    starts_t += torch.as_tensor(np.cumsum([0] + tot_l[:-1]), device=dev)[:, None]
+    k9 = decode_nway(payload_t, starts_t, lens_t, f_t, c_t, lut_t, steps=steps_n)
+    p9, k9_plain_ms = events_ms(lambda: decode_nway_plain(
+        payload_t, starts_t, lens_t, f_t, c_t, lut_t, steps=steps_n))
+    err9 = max_abs_err(k9, p9)
+    check(err9 == 0, f"decode_nway differs from its plain version by {err9}")
+    check(bool(torch.equal(k9.reshape(n_str + 1, -1), syms)),
+          "decode_nway does not invert encode_nway")
+    del p9, k9
+    torch.cuda.empty_cache()
+    # timed on the main path's 12 streams
+    m8 = (syms[:n_str], f_t[:n_str], c_t[:n_str])
+    main_bytes = sum(tot_l[:n_str])
+    m9 = (payload_t[:main_bytes], starts_t[:n_str], lens_t[:n_str],
+          f_t[:n_str], c_t[:n_str], lut_t[:n_str])
+    stats["encode_nway"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: encode_nway(*m8, n_lanes=ALC2_LANES), 5),
+        plain_ms=k8_plain_ms, plain_streams=n_str + 1,
+        # symbols in; two byte slots, a count per step and the states out
+        bound_ms=bound_ms(n_str * n_sym * (1 + 2 + 1) + n_str * ALC2_LANES * 8))
+    stats["decode_nway"] = dict(
+        max_abs_err=err9,
+        ms=time_ms(lambda: decode_nway(*m9, steps=steps_n), 5),
+        plain_ms=k9_plain_ms, plain_streams=n_str + 1,
+        # the lanes' bytes in (with their starts and lengths); symbols out
+        bound_ms=bound_ms(main_bytes + n_str * ALC2_LANES * 12 + n_str * n_sym))
+    print(f"N-lane rANS: {n_str} + 1 streams of {ALC2_LANES} lanes x {steps_n} "
+          f"steps bit-exact against the plain versions (the skewed stream "
+          f"{pairs} byte pairs); the {n_str} main-path streams hold "
+          f"{main_bytes} payload bytes; {time.perf_counter() - t0:.1f} s "
+          f"(plain calls {k8_plain_ms / 1e3:.1f} + {k9_plain_ms / 1e3:.1f} s "
+          f"for {n_str + 1} streams) [{card}]")
+    del syms, payload_t, starts_t, lens_t, m8, m9, f_t, c_t, lut_t
+    torch.cuda.empty_cache()
+
     for name, s in stats.items():
         print(f"{name}: {s['ms']:.3f} ms per launch (plain {s['plain_ms']:.1f} ms, "
               f"bytes bound {s['bound_ms']:.3f} ms), max |kernel - plain| "
@@ -617,6 +750,32 @@ def main() -> int:
           f"x sparse) decoded bit-exact in both inverse modes and re-encoded "
           f"byte-identical (cases {', '.join(mcases)})")
 
+    # the `.alc` fixtures: 48 from the independent C++ pipeline, the rest
+    # written by the JAX package; each decodes on the card to its RGB and
+    # its closed-form input re-encodes to its bytes
+    t0 = time.perf_counter()
+    n_alc = {}
+    for kind in ("cpp", "self"):
+        adir = ROOT / "tests" / "golden" / kind
+        recs = json.loads((adir / "manifest.json").read_text())["fixtures"]
+        for rec in recs:
+            data = (adir / f"{rec['name']}.alc").read_bytes()
+            check(hashlib.sha256(data).hexdigest() == rec["alc_sha256"],
+                  f".alc golden {kind}/{rec['name']} does not match its manifest")
+            got = FrameDecoder().decode(EncodedChunk.from_bytes(data))
+            check(hashlib.sha256(got.tobytes()).hexdigest() == rec["rgb_sha256"],
+                  f".alc golden {kind}/{rec['name']}: decode differs")
+            enc = FrameEncoder(rec["quality"], rec["wavelet"]).encode(
+                golden_rgb(rec["w"], rec["h"], rec["f"]), rec["w"], rec["h"],
+                rec["f"])
+            check(enc.to_bytes() == data,
+                  f".alc golden {kind}/{rec['name']}: re-encode differs")
+        n_alc[kind] = len(recs)
+    check(n_alc["cpp"] == 48, f"{n_alc['cpp']} C++ fixtures, expected 48")
+    print(f".alc goldens: {n_alc['cpp']} C++ and {n_alc['self']} JAX-written "
+          f"containers decoded to their RGB and re-encoded byte-identical on "
+          f"the card ({time.perf_counter() - t0:.1f} s)")
+
     # ── 4. the paths at full width ──────────────────────────────
     paths = {"dense_q90": Alc3Codec(QUALITY, "cdf53")}
     for q in SPARSE_Q:
@@ -679,7 +838,7 @@ def main() -> int:
                 sym_enc, _ = pipeline.encode_device(
                     rgb, codec.step, codec.step,
                     wavelet_type=codec.wavelet_type, padded=padded,
-                    hist_stride=alc3.HIST_STRIDE)
+                    hist_stride=alc3.HIST_STRIDE, interleaved=True)
                 sym_dec = alc3._entropy_decode(
                     chunk.streams, chunk.counts, chunk.hists, padded=padded,
                     s_seg=s_seg, v_seg=alc3._pick_v_seg(chunk.n_segments))
@@ -723,7 +882,138 @@ def main() -> int:
     del dense_rgb
     torch.cuda.empty_cache()
 
+    def quality_of(out, ref, payload_bytes, n_chunks=1):
+        mse = float(((out.float() - ref.float()) ** 2).mean().item())
+        psnr = 10 * np.log10(255.0 ** 2 / mse) if mse else float("inf")
+        return rgb_np.nbytes * n_chunks / max(payload_bytes, 1), psnr
+
+    def only(launches, want):
+        return all(launches[k] == want.get(k, 0) for k in launches)
+
+    # the `.alc` single chunk: encode stage on the card, serial host rANS
+    fe, fd = FrameEncoder(QUALITY, "cdf53"), FrameDecoder()
+    reset_launches()
+    t0 = time.perf_counter()
+    a_chunk = fe.encode(rgb, W, H, T)
+    a_data = a_chunk.to_bytes()
+    t1 = time.perf_counter()
+    a_out = fd.decode(EncodedChunk.from_bytes(a_data))
+    t_alc = (t1 - t0, time.perf_counter() - t1)
+    launches = launch_counts()
+    print(f"alc_q90 launches: {launches}")
+    check(only(launches, {"forward_quant": 1, "inverse_3d": 1}),
+          f"alc_q90: expected forward_quant 1 and inverse_3d 1, got {launches}")
+    by_path["alc_q90"] = launches
+    with plain_kernels():
+        pa_data = FrameEncoder(QUALITY, "cdf53").encode(rgb, W, H, T).to_bytes()
+        pa_out = FrameDecoder().decode(EncodedChunk.from_bytes(pa_data))
+    check(a_data == pa_data, "alc_q90: container differs from the plain pipeline's")
+    check(np.array_equal(a_out, pa_out),
+          "alc_q90: RGB differs from the plain pipeline's")
+    del pa_out
+    ratio, psnr = quality_of(torch.as_tensor(a_out, device=dev).reshape(rgb.shape),
+                             rgb, a_chunk.compressed_size)
+    print(f"alc_q90: {len(a_data)} container bytes, compression {ratio:.4f}x, "
+          f"PSNR {psnr:.4f} dB; equal to the plain pipeline; first run "
+          f"encode {t_alc[0]:.3f} s, decode {t_alc[1]:.3f} s [{card}]")
+    del a_out, a_chunk
+
+    # the ALC2 batch, device entropy (bench.py config4_alc_batched_decode)
+    b_dec = BatchFrameDecoder(device_entropy=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    stream = b_enc.encode(batch_dev)
+    s_data = stream.to_bytes()
+    t1 = time.perf_counter()
+    b_out = b_dec.decode(EncodedChunkStream.from_bytes(s_data), as_numpy=False)
+    torch.cuda.synchronize()
+    t_alc2 = (t1 - t0, time.perf_counter() - t1)
+    launches = launch_counts()
+    print(f"alc2_q90 launches: {launches}")
+    check(only(launches, {"forward_quant": ALC2_CHUNKS, "inverse_3d": ALC2_CHUNKS,
+                          "encode_nway": 1, "decode_nway": 1}),
+          f"alc2_q90: expected forward_quant {ALC2_CHUNKS}, inverse_3d "
+          f"{ALC2_CHUNKS}, encode_nway 1, decode_nway 1, got {launches}")
+    by_path["alc2_q90"] = launches
+    t0 = time.perf_counter()
+    host = BatchFrameEncoder(QUALITY, "cdf53", n_lanes=ALC2_LANES).encode(batch_dev)
+    t_host_enc = time.perf_counter() - t0
+    check(host.payload == stream.payload,
+          "alc2_q90: device-entropy payload differs from the host coder's")
+    check(host.to_bytes() == s_data,
+          "alc2_q90: device-entropy stream differs from the host coder's")
+    del host
+    t0 = time.perf_counter()
+    h_out = BatchFrameDecoder().decode(EncodedChunkStream.from_bytes(s_data),
+                                       as_numpy=False)
+    torch.cuda.synchronize()
+    t_host_dec = time.perf_counter() - t0
+    check(bool(torch.equal(h_out, b_out)),
+          "alc2_q90: RGB differs from the host-entropy decode")
+    del h_out
+    ratio, psnr = quality_of(b_out, batch_dev, stream.compressed_size, ALC2_CHUNKS)
+    print(f"alc2_q90: {ALC2_CHUNKS} chunks, {len(s_data)} stream bytes, "
+          f"compression {ratio:.4f}x, PSNR {psnr:.4f} dB; payload and stream "
+          f"equal to the host coder's, RGB equal to the host decode's; first "
+          f"run encode {t_alc2[0]:.3f} s, decode {t_alc2[1]:.3f} s; host "
+          f"entropy encode {t_host_enc:.3f} s, decode {t_host_dec:.3f} s [{card}]")
+    del b_out
+    torch.cuda.empty_cache()
+
     # ── 5. timings ──────────────────────────────────────────────
+    reps = 3
+    torch.cuda.reset_peak_memory_stats()
+    t_enc = t_dec = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        stream = b_enc.encode(batch_dev)
+        t1 = time.perf_counter()
+        out = b_dec.decode(stream, as_numpy=False)
+        torch.cuda.synchronize()
+        t_enc += t1 - t0
+        t_dec += time.perf_counter() - t1
+        del out
+    peak = torch.cuda.max_memory_allocated()
+    n_c = reps * ALC2_CHUNKS
+    print(f"alc2_q90: encode {n_c / t_enc:.4f} chunks/s, decode "
+          f"{n_c / t_dec:.4f} chunks/s, roundtrip {n_c / (t_enc + t_dec):.4f} "
+          f"chunks/s over {reps} batches of {ALC2_CHUNKS} x {T}x{H}x{W} (host "
+          f"clock, synchronized; stream objects, without to_bytes/from_bytes); "
+          f"peak memory {peak / 2**30:.3f} GiB [{card}]")
+    t0 = time.perf_counter()
+    s_data = stream.to_bytes()
+    t1 = time.perf_counter()
+    EncodedChunkStream.from_bytes(s_data)
+    print(f"alc2_q90: to_bytes {t1 - t0:.3f} s, from_bytes "
+          f"{time.perf_counter() - t1:.3f} s (host) [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    t_enc = t_dec = 0.0
+    for _ in range(2):
+        t0 = time.perf_counter()
+        a_data = fe.encode(rgb, W, H, T).to_bytes()
+        t1 = time.perf_counter()
+        fd.decode(EncodedChunk.from_bytes(a_data))
+        t_enc += t1 - t0
+        t_dec += time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    print(f"alc_q90: encode {t_enc / 2:.3f} s, decode {t_dec / 2:.3f} s per "
+          f"{T}x{H}x{W} chunk (mean of 2, host clock, container bytes in and "
+          f"out, RGB back on the host); peak memory {peak / 2**30:.3f} GiB "
+          f"[{card}]")
+    for name, fn in (
+            ("alc2_q90", lambda: b_dec.decode(b_enc.encode(batch_dev),
+                                              as_numpy=False)),
+            ("alc_q90", lambda: fd.decode(fe.encode(rgb, W, H, T)))):
+        wall_ms, rows = device_profile(fn)
+        busy_ms = sum(r[1] for r in rows)
+        print(f"{name} profile: one roundtrip {wall_ms:.3f} ms wall (profiled), "
+              f"device kernel time {busy_ms:.3f} ms = "
+              f"{100 * busy_ms / wall_ms:.1f} % busy [{card}]")
+        for key, ms, count in rows[:16]:
+            print(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+    del stream, batch_dev
+    torch.cuda.empty_cache()
+
     reps = 5
     for name, codec in paths.items():
         chunk = codec.encode(rgb)
@@ -775,10 +1065,14 @@ def main() -> int:
         # column kernels inside every lift wrapper; its launches are the
         # lift wrappers' launches on the 4K roundtrips of phase 2
         "row_col_lift": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:138"),
+        "encode_nway": ("rans_nway.cu", "alice_codec_tpu/ops/pallas/rans_kernel.py:125"),
+        "decode_nway": ("rans_nway.cu",
+                        "alice_codec_tpu/ops/pallas/rans_decode_kernel.py:132"),
     }
     #: the path whose launches each kernel's entry reports
     main_path = {"compact": "sparse_q50", "expand": "sparse_q50",
-                 "forward_3d": "deep_q100", "inverse_3d": "deep_q100"}
+                 "forward_3d": "deep_q100", "inverse_3d": "deep_q100",
+                 "encode_nway": "alc2_q90", "decode_nway": "alc2_q90"}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = stats[name]
@@ -796,11 +1090,13 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
         })
-        if "kernel_ms" in s:
-            kernels[-1]["kernel_ms"] = s["kernel_ms"]
+        for extra in ("kernel_ms", "plain_streams"):
+            if extra in s:
+                kernels[-1][extra] = s[extra]
     print("kernels: " + json.dumps(
         [{k: d[k] for k in ("name", "launches_by_path", "max_abs_err")}
          for d in kernels]))
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

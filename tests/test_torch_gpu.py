@@ -10,6 +10,7 @@ fixture of ``tests/conftest.py`` out)::
 Bit-exact everywhere.  chip_smoke.py repeats the comparisons at the main
 paths' full widths."""
 
+import hashlib
 import json
 from pathlib import Path
 
@@ -17,8 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from alice_codec_tpu_torch import Alc3Codec, WaveletType
-from alice_codec_tpu_torch.ops.kernels import lift, rans3, sparse
+from alice_codec_tpu_torch import (Alc3Codec, EncodedChunk, FrameDecoder,
+                                   FrameEncoder, FrequencyTable, WaveletType)
+from alice_codec_tpu_torch.ops import rans_device
+from alice_codec_tpu_torch.ops.kernels import lift, rans3, rans_nway, sparse
+from alice_codec_tpu_torch.parallel import BatchFrameDecoder, BatchFrameEncoder
+from alice_codec_tpu_torch.utils.golden import golden_rgb
 from alice_codec_tpu_torch.ops.kernels.rans3 import NG
 from alice_codec_tpu_torch.ops.tables_device import freq_table_device
 
@@ -264,3 +269,122 @@ def test_split_frame_lift_kernels_match_plain(cuda, monkeypatch):
         for exact in (False, True):
             assert _equal(lift.inverse_dequant(sym, wt, 160, exact=exact),
                           lift.inverse_dequant_plain(sym, wt, 160, exact=exact))
+
+
+def _nway_streams(lanes: int, steps: int, seed: int):
+    """Three streams of ``steps`` x ``lanes`` symbols with their sanitized
+    tables: a one-symbol table (symbol 7 only in its histogram), a
+    uniform one and a skewed one (symbol 0 dominant; half the symbols
+    drawn from the rare ones, forcing two-byte emits)."""
+    rng = np.random.default_rng(seed)
+    n = lanes * steps
+    one = np.zeros(256, np.uint32)
+    one[7] = 1000
+    skew = np.zeros(256, np.uint32)
+    skew[0] = 1 << 20
+    skew[1:40] = 1
+    hists = [one, np.full(256, 5, np.uint32), skew]
+    syms = [np.where(rng.random(n) < 0.95, 7, rng.integers(0, 256, n)),
+            rng.integers(0, 256, n),
+            np.where(rng.random(n) < 0.5, 0, rng.integers(1, 256, n))]
+    tables = [FrequencyTable.from_histogram(h, sanitize=True) for h in hists]
+    return np.stack(syms).astype(np.uint8), tables
+
+
+def _tables(tables, dev):
+    f = torch.as_tensor(np.stack([t.freqs for t in tables]).astype(np.int32), device=dev)
+    c = torch.as_tensor(np.stack([t.cums for t in tables]).astype(np.int32), device=dev)
+    lut = torch.as_tensor(np.stack([t.cum_to_sym for t in tables]), device=dev)
+    return f, c, lut
+
+
+@pytest.mark.parametrize("steps", [1, 7, 32400])
+@pytest.mark.parametrize("lanes", [1, 33, 4096])
+def test_rans_nway_kernels_match_plain(cuda, lanes, steps):
+    """K8 and K9 against their plain versions on three streams (one-symbol,
+    uniform and skewed tables) in one launch each; K9 decodes K8's packed
+    output back to the symbols."""
+    sym_np, tables = _nway_streams(lanes, steps, lanes + steps)
+    sym = torch.as_tensor(sym_np, device=cuda)
+    f, c, lut = _tables(tables, cuda)
+    n = rans_nway.encode_nway.launches
+    got = rans_nway.encode_nway(sym, f, c, n_lanes=lanes)
+    torch.cuda.synchronize()
+    assert rans_nway.encode_nway.launches == n + 1
+    want = rans_nway.encode_nway_plain(sym, f, c, n_lanes=lanes)
+    for a, b in zip(got, want):
+        assert _equal(a, b)
+    if steps == 32400 and lanes > 1:
+        assert bool((got[1][2] == 2).any())  # the skewed stream emits pairs
+    pays, lens, totals = [], [], []
+    for i in range(3):
+        pay, ln, tot = rans_device.pack_device(got[0][i], got[1][i], got[2][i],
+                                               n=lanes * steps, n_lanes=lanes)
+        pays.append(pay[:int(tot)])
+        lens.append(ln)
+        totals.append(int(tot))
+    payload = torch.cat(pays)
+    lens = torch.stack(lens)
+    starts = torch.cumsum(lens.long(), 1) - lens.long()
+    starts += torch.as_tensor(np.cumsum([0] + totals[:-1]), device=cuda)[:, None]
+    n = rans_nway.decode_nway.launches
+    out = rans_nway.decode_nway(payload, starts, lens, f, c, lut, steps=steps)
+    torch.cuda.synchronize()
+    assert rans_nway.decode_nway.launches == n + 1
+    assert _equal(out, rans_nway.decode_nway_plain(payload, starts, lens, f, c,
+                                                    lut, steps=steps))
+    assert _equal(out.reshape(3, -1), sym)
+    # lanes cut short (one shorter than its state): reads stop at each
+    # lane's end, as in the plain version
+    cut = lens.clone()
+    cut[1, 0] = 3
+    cut[2, -1] = 5
+    assert _equal(rans_nway.decode_nway(payload, starts, cut, f, c, lut, steps=steps),
+                  rans_nway.decode_nway_plain(payload, starts, cut, f, c, lut,
+                                              steps=steps))
+
+
+def test_rans_nway_kernels_reject_bad_shapes(cuda):
+    sym = torch.zeros(2, 30, dtype=torch.uint8, device=cuda)
+    f = torch.ones(2, 256, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        rans_nway.encode_nway(sym, f, f, n_lanes=7)
+    with pytest.raises(ValueError, match="expected"):
+        rans_nway.encode_nway(sym, f[:1], f[:1], n_lanes=5)
+
+
+def _golden_records(kind: str):
+    d = Path(__file__).parent / "golden" / kind
+    return d, json.loads((d / "manifest.json").read_text())["fixtures"]
+
+
+@pytest.mark.parametrize("kind", ["cpp", "self"])
+def test_alc_goldens_on_card(cuda, kind):
+    """Every committed `.alc` fixture decodes on the card to its committed
+    RGB (or digest), and the fixture input re-encodes to its bytes."""
+    d, recs = _golden_records(kind)
+    enc_dec = FrameDecoder()
+    for rec in recs:
+        data = (d / f"{rec['name']}.alc").read_bytes()
+        out = enc_dec.decode(EncodedChunk.from_bytes(data))
+        assert hashlib.sha256(out.tobytes()).hexdigest() == rec["rgb_sha256"], rec["name"]
+        rgb = golden_rgb(rec["w"], rec["h"], rec["f"])
+        chunk = FrameEncoder(rec["quality"], rec["wavelet"]).encode(
+            rgb, rec["w"], rec["h"], rec["f"])
+        assert chunk.to_bytes() == data, rec["name"]
+
+
+def test_alc2_full_width_device_entropy_matches_host(cuda):
+    """One 64x1080x1920 chunk at 4096 lanes: the device-entropy ALC2
+    payload (K8 + the torch pack) equals the host native coder's, and
+    each decoder decodes the other's to the same RGB."""
+    import bench
+
+    batch = bench._test_chunk(64, 1080, 1920)[None]
+    dev = BatchFrameEncoder(90, "cdf53", n_lanes=4096, device_entropy=True)
+    host = BatchFrameEncoder(90, "cdf53", n_lanes=4096)
+    s_dev, s_host = dev.encode(batch), host.encode(batch)
+    assert s_dev.to_bytes() == s_host.to_bytes()
+    out_dev = BatchFrameDecoder(device_entropy=True).decode(s_host, as_numpy=False)
+    out_host = BatchFrameDecoder().decode(s_dev, as_numpy=False)
+    assert _equal(out_dev, out_host)

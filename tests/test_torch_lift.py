@@ -301,7 +301,8 @@ def test_unfused_shapes_decode_like_jax(monkeypatch):
     step = np.full(3, 160, np.int32)
     fused = pipeline.decode_device(
         torch.from_numpy(sym), torch.from_numpy(step),
-        wavelet_type=WaveletType.CDF53, dims=dims, padded=padded)
+        wavelet_type=WaveletType.CDF53, dims=dims, padded=padded,
+        interleaved=True)
     monkeypatch.setattr(jlift, "_TILE_BYTES", 1)
     monkeypatch.setattr(pipeline, "_TILE_BYTES", 1)
     assert not pipeline._tpu_fused(padded)
@@ -312,7 +313,7 @@ def test_unfused_shapes_decode_like_jax(monkeypatch):
     before = lift.inverse_dequant.launches
     got = pipeline.decode_device(torch.from_numpy(sym), torch.from_numpy(step),
                                  wavelet_type=WaveletType.CDF53, dims=dims,
-                                 padded=padded)
+                                 padded=padded, interleaved=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert lift.inverse_dequant.launches == before
     assert not torch.equal(got, fused)  # the int16 stores matter here
