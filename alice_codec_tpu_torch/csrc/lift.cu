@@ -1,45 +1,60 @@
-// Level-0 interleaved 3D lifting for Hopper (sm_90a): plain (int32 in and
-// out), or fused with quantization (forward) and dequantization (inverse).
+// Level-0 interleaved 3D lifting for Hopper (sm_90a): fused with
+// quantization (forward) and dequantization (inverse), or plain (int32 in
+// and out).
 //
 // Replaces the TPU kernels of alice_codec_tpu/ops/pallas/lift_kernels.py:
 //   * forward_quant_pallas  (_spatial_kernel + _temporal_quant_kernel)
 //   * inverse_dequant_pallas (_temporal_dequant_kernel + _spatial_kernel)
+//     -- and, on frames too large for one VMEM block (4K), their split
+//     spatial _axis_kernel: spatial_tiles stores int16 between its axes;
 //   * forward_3d_pallas / inverse_3d_pallas (_spatial_kernel +
-//     _temporal_kernel), int32 throughout
-// and, for frames too large for one VMEM block (4K), the split spatial
-// _axis_kernel: row_lift is its W-axis form, col_lift its H-axis form.
+//     _temporal_kernel), int32 throughout, and their split _axis_kernel:
+//     row_lift is its W-axis form, col_lift its H-axis form.
 //
 // What bounds it on the H100: memory traffic.  Every step is a handful of
 // integer operations per coefficient, against 2-6 bytes moved per
 // coefficient per pass (a 64x1080x1920 chunk holds 398 M coefficients).
 //
-// Design.  The TPU kernel keeps one whole (H, W) frame in VMEM and lifts W
-// then H without leaving it.  A 1080p frame does not fit the 227 KB of
-// shared memory a block may use, so the spatial pass is split in two:
-//   * row_lift: one block per (plane, row) lifts a full row (all steps of
-//     the filter) in shared memory;
-//   * col_lift: one block per (plane, 16-column strip) lifts full columns
-//     (an H x 16 int32 strip: 69 KB at H = 1080, dynamic shared memory).
-// Between them the coefficients travel as int32, because the fused TPU
-// kernel never rounds between its W and H lifts.  The temporal pass gives
-// each thread one (c, h, w) column of T values in shared memory; threads
-// of a warp own neighbouring w, so every load and store is coalesced.
-// The forward temporal pass quantizes and zigzags on the way out (exact
-// integer division: CUDA has one, unlike the TPU); the inverse temporal
-// pass un-zigzags and dequantizes on the way in.
+// Fused kernels (K1 forward_quant, K4 inverse_dequant): two passes with one
+// int16 volume between them, the TPU kernels' own store (o_ref.astype at
+// lift_kernels.py:135 and :193).
+//   * spatial_tiles: one 256-thread block per (plane, tile).  A 1080p
+//     frame does not fit shared memory, so a block lifts a halo window of
+//     64 rows x 256 columns held in registers: warp g owns rows 8g..8g+7,
+//     lane l columns 8l..8l+7 (one 16-byte load per row).  Lifting is
+//     local: a step reads only its two neighbours, so a window whose cut
+//     edges lie `halo` (= the number of steps) or more positions from the
+//     stored tile gives the tile the full-frame values.  The stored tile is
+//     (64 - 2 halo) x 240; windows are clamped into the frame, so on frames
+//     of at least 64 x 256 (W a multiple of 8) the frame edges fall on a
+//     warp's first or last row and a lane's first or last column, where
+//     the neighbour comes from another thread anyway (a warp shuffle along
+//     W, a shared-memory row exchange between warps along H).  Smaller or
+//     ragged frames take the checked form (element loads, edge tests at
+//     every target).  The filter is a template argument, so every delta is
+//     folded to its shift or multiply form at compile time.
+//   * temporal_*_t64: T = 64 (the codec's chunk) in registers, two
+//     neighbouring columns a thread (4-byte int16 and 2-byte uint8
+//     accesses, coalesced across the warp); other T take the shared-memory
+//     column kernels temporal_quant / temporal_dequant.  The forward pass
+//     quantizes with a per-channel multiply-high reciprocal computed on the
+//     host (exact floor division for every numerator below 2^31) and
+//     zigzags; the inverse pass un-zigzags and dequantizes on the way in.
 //
 // Storage points follow the TPU kernels exactly: int32 inside a pass,
-// int16 where the Pallas kernels store (o_ref.astype at lift_kernels.py
-// :135, :144 and :193).  An out-of-range inverse intermediate therefore
-// WRAPS at the temporal -> spatial boundary, and, on frames the TPU
-// splits (split = 1), between the two spatial passes, as on the TPU.  The plain
-// 3D lift stores int32 everywhere (its o_ref is int32) and runs each pass
-// in place after the first, so it needs no scratch volume.  Arithmetic
-// that can overflow runs in unsigned int (two's-complement wrap, no
-// undefined behaviour); right shifts of negative values are arithmetic.
+// int16 where the Pallas kernels store.  An out-of-range inverse
+// intermediate therefore WRAPS at the temporal -> spatial boundary, and,
+// on frames the TPU splits (split = 1), between the two spatial axes
+// (lift_kernels.py:144), as on the TPU.  The plain 3D lift (K7) stores
+// int32 everywhere (its o_ref is int32) and runs each pass in place after
+// the first, so it needs no scratch volume.  Arithmetic that can overflow
+// runs in unsigned int (two's-complement wrap, no undefined behaviour);
+// right shifts of negative values are arithmetic.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -95,7 +110,7 @@ __device__ __forceinline__ void lift_one(int* a, int i, int n, int s,
   a[i * s] = sub ? wsub(a[i * s], d) : wadd(a[i * s], d);
 }
 
-// ---- spatial passes -------------------------------------------------------
+// ---- K7 spatial passes ----------------------------------------------------
 
 // One block per row of length w; all steps along the row.
 // in may equal out: a block reads its whole row before it writes it.
@@ -142,7 +157,360 @@ __global__ void col_lift(const InT* in, OutT* out, int h, int w, Steps st) {
       out[plane + (size_t)r * w + col] = (OutT)strip[r * kStrip + tx];
 }
 
-// ---- temporal passes ------------------------------------------------------
+// ---- filters known at compile time (K1 / K4) --------------------------------
+
+// The three filters of alice_codec_tpu/ops/wavelet.py (coefficients x 2^12;
+// every filter alternates predict, update): 0 Haar, 1 CDF 5/3, 2 CDF 9/7.
+__host__ __device__ constexpr int base_n(int b) { return b == 2 ? 4 : 2; }
+__host__ __device__ constexpr int base_coeff(int b, int k) {
+  return b == 0   ? (k == 0 ? -4096 : 2048)
+         : b == 1 ? (k == 0 ? -4096 : 1024)
+                  : (k == 0 ? -6497 : k == 1 ? -217 : k == 2 ? 3616 : 1817);
+}
+
+enum Mode { kForward = 0, kInverseCompat = 1, kInverseExact = 2 };
+
+// Step k of filter B applied in mode M: forward steps in order; inverse
+// steps in reverse, with negated coefficients (compat) or subtracted
+// deltas (exact), as lift_steps in ops/wavelet.py orders them.
+template <int B, int M>
+struct Filter {
+  static constexpr int n = base_n(B);
+  static constexpr bool sub = M == kInverseExact;
+  __host__ __device__ static constexpr int src(int k) {
+    return M == kForward ? k : n - 1 - k;
+  }
+  __host__ __device__ static constexpr int coeff(int k) {
+    return M == kInverseCompat ? -base_coeff(B, src(k)) : base_coeff(B, src(k));
+  }
+  __host__ __device__ static constexpr bool predict(int k) {
+    return (src(k) & 1) == 0;
+  }
+};
+
+// Step K of filter F on target x; the coefficient is a constant, so
+// delta()'s switch folds to one form.
+template <class F, int K>
+__device__ __forceinline__ int lift_target(int x, int left, int right) {
+  int d = delta(wadd(left, right), F::coeff(K));
+  return F::sub ? wsub(x, d) : wadd(x, d);
+}
+
+// Calls fn(std::integral_constant<int, K>) for K = 0 .. F::n - 1.
+template <class F, int K = 0, class Fn>
+__device__ __forceinline__ void for_steps(Fn&& fn) {
+  if constexpr (K < F::n) {
+    fn(std::integral_constant<int, K>{});
+    for_steps<F, K + 1>(fn);
+  }
+}
+
+// ---- K1 / K4 spatial pass: halo tiles in registers --------------------------
+
+constexpr int kSeg = 8;                   // columns a lane holds
+constexpr int kWinW = 32 * kSeg;          // window columns (one warp)
+constexpr int kHaloW = 8;                 // column halo, >= any filter's steps
+constexpr int kTileW = kWinW - 2 * kHaloW;  // stored columns: 240
+constexpr int kRows = 8;                  // rows a warp holds
+constexpr int kWarps = 8;                 // warps a block
+constexpr int kWinH = kWarps * kRows;     // window rows: 64
+constexpr int kTileThreads = 32 * kWarps;
+
+using Tile = int[kRows][kSeg];
+
+// Whether an (h, w) frame takes the clamped-window form (FAST below; the
+// launchers also need 16-byte aligned volumes).
+__host__ __device__ constexpr bool fast_frame(int h, int w) {
+  return h >= kWinH && w >= kWinW && w % kSeg == 0;
+}
+
+// Tile (bx, by) of the spatial pass: the rows [r0, r1) and columns [c0, c1)
+// it stores, and the frame row and column (wr0, wc0) where its kWinH x kWinW
+// window starts (clamped into the frame when fast).  spatial_tiles and
+// alc_tile_windows both take the geometry from here.
+struct TileWindow {
+  int r0, r1, c0, c1, wr0, wc0;
+};
+
+__host__ __device__ inline TileWindow tile_window(int bx, int by, int h, int w,
+                                                  int halo, bool fast) {
+  const int tile_h = kWinH - 2 * halo;
+  TileWindow t;
+  t.r0 = by * tile_h;
+  t.c0 = bx * kTileW;
+  t.r1 = t.r0 + tile_h < h ? t.r0 + tile_h : h;
+  t.c1 = t.c0 + kTileW < w ? t.c0 + kTileW : w;
+  t.wr0 = t.r0 - halo;
+  t.wc0 = t.c0 - kHaloW;
+  if (fast) {
+    t.wr0 = t.wr0 < 0 ? 0 : (t.wr0 > h - kWinH ? h - kWinH : t.wr0);
+    t.wc0 = t.wc0 < 0 ? 0 : (t.wc0 > w - kWinW ? w - kWinW : t.wc0);
+  }
+  return t;
+}
+
+// All steps along W over the thread's rows.  gc: frame column of v[.][0].
+// FAST: the window lies inside the frame, so the frame's first column can
+// only be a lane's first one (gc == 0) and its last a lane's last one.
+template <class F, bool FAST>
+__device__ __forceinline__ void lift_w(Tile& v, int gc, int w) {
+  for_steps<F>([&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if constexpr (F::predict(K)) {
+        int next = __shfl_down_sync(0xffffffffu, v[i][0], 1);
+#pragma unroll
+        for (int j = 1; j < kSeg; j += 2) {
+          int l = v[i][j - 1];
+          int r = j + 1 < kSeg ? v[i][j + 1] : next;
+          if (FAST ? (j == kSeg - 1 && gc + kSeg == w) : (gc + j == w - 1)) r = l;
+          v[i][j] = lift_target<F, K>(v[i][j], l, r);
+        }
+      } else {
+        int prev = __shfl_up_sync(0xffffffffu, v[i][kSeg - 1], 1);
+#pragma unroll
+        for (int j = 0; j < kSeg; j += 2) {
+          int r = v[i][j + 1];
+          int l = j > 0 ? v[i][j - 1] : prev;
+          if (FAST ? (j == 0 && gc == 0) : (gc + j == 0)) l = r;
+          v[i][j] = lift_target<F, K>(v[i][j], l, r);
+        }
+      }
+    }
+  });
+}
+
+// All steps along H over the window.  gr0: frame row of v[0]; g: warp.
+// The row a step needs from the warp below (predict) or above (update)
+// goes through shared memory, double-buffered by step parity, so one
+// barrier a step suffices.
+template <class F, bool FAST>
+__device__ __forceinline__ void lift_h(Tile& v, int gr0, int h, int g, int lane,
+                                       int (*xch)[kWarps][kSeg][32]) {
+  for_steps<F>([&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    constexpr bool P = F::predict(K);
+    int(*buf)[kSeg][32] = xch[K & 1];
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) buf[g][j][lane] = P ? v[0][j] : v[kRows - 1][j];
+    __syncthreads();
+    const int gn = P ? min(g + 1, kWarps - 1) : max(g - 1, 0);
+    int edge[kSeg];
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) edge[j] = buf[gn][j][lane];
+    if constexpr (P) {
+#pragma unroll
+      for (int i = 1; i < kRows; i += 2) {
+        const bool mirror =
+            FAST ? (i == kRows - 1 && gr0 + kRows == h) : (gr0 + i == h - 1);
+#pragma unroll
+        for (int j = 0; j < kSeg; ++j) {
+          int up = v[i - 1][j];
+          int dn = i + 1 < kRows ? v[i + 1][j] : edge[j];
+          v[i][j] = lift_target<F, K>(v[i][j], up, mirror ? up : dn);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRows; i += 2) {
+        const bool mirror = FAST ? (i == 0 && gr0 == 0) : (gr0 + i == 0);
+#pragma unroll
+        for (int j = 0; j < kSeg; ++j) {
+          int dn = v[i + 1][j];
+          int up = i > 0 ? v[i - 1][j] : edge[j];
+          v[i][j] = lift_target<F, K>(v[i][j], mirror ? dn : up, dn);
+        }
+      }
+    }
+  });
+}
+
+__device__ __forceinline__ void store_int16(Tile& v) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) v[i][j] = (int16_t)v[i][j];
+}
+
+// grid (ceil(w / kTileW), ceil(h / (kWinH - 2 halo)), planes): the W and H
+// lifts of one tile (forward: W then H; inverse: H then W), int16 in and
+// out, int16 between the axes when split.  FAST: h >= kWinH, w >= kWinW,
+// w % 8 == 0 and 16-byte aligned volumes; the window is clamped into the
+// frame and needs no bounds tests.
+template <class F, bool FWD, bool FAST>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    spatial_tiles(const int16_t* __restrict__ in, int16_t* __restrict__ out,
+                  int h, int w, int halo, int split) {
+  __shared__ int xch[2][kWarps][kSeg][32];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const TileWindow tw = tile_window(blockIdx.x, blockIdx.y, h, w, halo, FAST);
+  const int gr0 = tw.wr0 + g * kRows, gc = tw.wc0 + lane * kSeg;
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  Tile v;
+  if (FAST) {
+    const int16_t* src = in + plane + (size_t)gr0 * w + gc;
+    int4 q[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      q[i] = __ldg(reinterpret_cast<const int4*>(src + (size_t)i * w));
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int word[4] = {q[i].x, q[i].y, q[i].z, q[i].w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[i][2 * k] = (int16_t)(word[k] & 0xffff);
+        v[i][2 * k + 1] = word[k] >> 16;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = gr0 + i;
+#pragma unroll
+      for (int j = 0; j < kSeg; ++j) {
+        const int c = gc + j;
+        v[i][j] = (r >= 0 && r < h && c >= 0 && c < w)
+                      ? (int)in[plane + (size_t)r * w + c] : 0;
+      }
+    }
+  }
+  if (FWD) {
+    lift_w<F, FAST>(v, gc, w);
+    if (split) store_int16(v);
+    lift_h<F, FAST>(v, gr0, h, g, lane, xch);
+  } else {
+    lift_h<F, FAST>(v, gr0, h, g, lane, xch);
+    if (split) store_int16(v);
+    lift_w<F, FAST>(v, gc, w);
+  }
+  const int r0 = tw.r0, r1 = tw.r1, c0 = tw.c0, c1 = tw.c1;
+  if (FAST) {
+    if (gc < c0 || gc >= c1) return;  // a lane's 8 columns are all in or out
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = gr0 + i;
+      if (r < r0 || r >= r1) continue;
+      int4 q;
+      q.x = (int)__byte_perm(v[i][0], v[i][1], 0x5410);
+      q.y = (int)__byte_perm(v[i][2], v[i][3], 0x5410);
+      q.z = (int)__byte_perm(v[i][4], v[i][5], 0x5410);
+      q.w = (int)__byte_perm(v[i][6], v[i][7], 0x5410);
+      *reinterpret_cast<int4*>(out + plane + (size_t)r * w + gc) = q;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = gr0 + i;
+      if (r < r0 || r >= r1) continue;
+#pragma unroll
+      for (int j = 0; j < kSeg; ++j) {
+        const int c = gc + j;
+        if (c >= c0 && c < c1) out[plane + (size_t)r * w + c] = (int16_t)v[i][j];
+      }
+    }
+  }
+}
+
+// ---- K1 / K4 temporal pass --------------------------------------------------
+
+// Per-channel quantizer: step, dead zone, and the reciprocal of the step
+// (m = ceil(2^(31+l) / step), l = ceil(log2 step), made on the host).
+struct QuantParams {
+  int step, dead_zone;
+  unsigned m;
+  int l;
+};
+
+// floor(n / step) for 0 <= n < 2^31: floor(m n / 2^(31+l)).
+__device__ __forceinline__ unsigned quotient(unsigned n, unsigned m, int l) {
+  return __umulhi(m, n << 1) >> l;
+}
+
+// Dead-zone quantize + zigzag of one coefficient (the low byte is the
+// symbol: the reference's `as u8` wrap).  dead_zone >= 0, so the numerator
+// |x| - dead_zone / 2 of a coefficient outside the dead zone is >= 0.
+__device__ __forceinline__ unsigned quant_symbol(int x, const QuantParams& p) {
+  int av = x < 0 ? wsub(0, x) : x;
+  unsigned q = quotient((unsigned)(av - (p.dead_zone >> 1)), p.m, p.l);
+  q = av >= p.dead_zone ? q : 0u;
+  // sign(x) q zigzagged: -n -> 2n, n -> 2n - 1, 0 -> 0
+  return 2u * q - ((x >= 0 && q != 0u) ? 1u : 0u);
+}
+
+__device__ __forceinline__ int dequant(unsigned s, int step) {
+  int q = (s & 1u) ? (int)((s + 1u) >> 1) : -(int)(s >> 1);
+  return wmul(q, step);
+}
+
+// All steps along a column of T values in registers (T even).
+template <class F, int T>
+__device__ __forceinline__ void lift_col(int (&x)[T]) {
+  for_steps<F>([&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+#pragma unroll
+    for (int i = F::predict(K) ? 1 : 0; i < T; i += 2) {
+      int l = i > 0 ? x[i - 1] : x[i + 1];
+      int r = i + 1 < T ? x[i + 1] : x[i - 1];
+      x[i] = lift_target<F, K>(x[i], l, r);
+    }
+  });
+}
+
+constexpr int kT64 = 64;
+constexpr int kPairThreads = 128;
+
+// grid (ceil(hw / 2 / 128), c): forward T lift + quantize + zigzag of two
+// neighbouring columns a thread (hw even; 4-byte aligned in, 2-byte out).
+template <class F>
+__global__ void __launch_bounds__(kPairThreads)
+    temporal_quant_t64(const int16_t* __restrict__ in, uint8_t* __restrict__ out,
+                       const QuantParams* __restrict__ qp, int hw) {
+  const int pair = blockIdx.x * kPairThreads + threadIdx.x;
+  if (2 * pair >= hw) return;
+  const size_t base = (size_t)blockIdx.y * kT64 * hw + 2 * (size_t)pair;
+  int a[kT64], b[kT64];
+#pragma unroll
+  for (int i = 0; i < kT64; ++i) {
+    const unsigned u = __ldg(reinterpret_cast<const unsigned*>(in + base + (size_t)i * hw));
+    a[i] = (int16_t)(u & 0xffffu);
+    b[i] = (int)u >> 16;
+  }
+  lift_col<F, kT64>(a);
+  lift_col<F, kT64>(b);
+  const QuantParams p = qp[blockIdx.y];
+#pragma unroll
+  for (int i = 0; i < kT64; ++i) {
+    const unsigned s = (quant_symbol(a[i], p) & 0xffu) | ((quant_symbol(b[i], p) & 0xffu) << 8);
+    *reinterpret_cast<uint16_t*>(out + base + (size_t)i * hw) = (uint16_t)s;
+  }
+}
+
+// grid (ceil(hw / 2 / 128), c): un-zigzag + dequantize + inverse T lift of
+// two neighbouring columns a thread -> int16 (2-byte aligned in, 4-byte out).
+template <class F>
+__global__ void __launch_bounds__(kPairThreads)
+    temporal_dequant_t64(const uint8_t* __restrict__ in, int16_t* __restrict__ out,
+                         const int32_t* __restrict__ step, int hw) {
+  const int pair = blockIdx.x * kPairThreads + threadIdx.x;
+  if (2 * pair >= hw) return;
+  const size_t base = (size_t)blockIdx.y * kT64 * hw + 2 * (size_t)pair;
+  const int q_step = step[blockIdx.y];
+  int a[kT64], b[kT64];
+#pragma unroll
+  for (int i = 0; i < kT64; ++i) {
+    const unsigned u = __ldg(reinterpret_cast<const uint16_t*>(in + base + (size_t)i * hw));
+    a[i] = dequant(u & 0xffu, q_step);
+    b[i] = dequant(u >> 8, q_step);
+  }
+  lift_col<F, kT64>(a);
+  lift_col<F, kT64>(b);
+#pragma unroll
+  for (int i = 0; i < kT64; ++i)
+    *reinterpret_cast<unsigned*>(out + base + (size_t)i * hw) = __byte_perm(a[i], b[i], 0x5410);
+}
+
+// ---- temporal passes for any T (shared-memory columns) ----------------------
 
 constexpr int kTemporalThreads = 128;
 
@@ -159,9 +527,8 @@ __device__ __forceinline__ void lift_column(int* col, int t, const Steps& st) {
 // grid (ceil(hw / 128), c): forward T lift, dead-zone quantize, zigzag.
 __global__ void temporal_quant(const int16_t* __restrict__ in,
                                uint8_t* __restrict__ out,
-                               const int32_t* __restrict__ step,
-                               const int32_t* __restrict__ dead_zone,
-                               int t, int hw, Steps st) {
+                               const QuantParams* __restrict__ qp, int t,
+                               int hw, Steps st) {
   extern __shared__ int buf[];
   int pos = blockIdx.x * kTemporalThreads + threadIdx.x;
   if (pos >= hw) return;
@@ -169,18 +536,9 @@ __global__ void temporal_quant(const int16_t* __restrict__ in,
   int* col = buf + threadIdx.x;
   for (int i = 0; i < t; ++i) col[i * kTemporalThreads] = in[base + (size_t)i * hw];
   lift_column(col, t, st);
-  int q_step = step[blockIdx.y], dz = dead_zone[blockIdx.y];
-  for (int i = 0; i < t; ++i) {
-    int x = col[i * kTemporalThreads];
-    int av = x < 0 ? wsub(0, x) : x;
-    int q = 0;
-    if (av >= dz) {
-      q = (av - (dz >> 1)) / q_step;  // numerator >= 0: floor == trunc
-      if (x < 0) q = -q;
-    }
-    unsigned s = q > 0 ? 2u * (unsigned)q - 1u : 0u - 2u * (unsigned)q;
-    out[base + (size_t)i * hw] = (uint8_t)(s & 0xFFu);
-  }
+  const QuantParams p = qp[blockIdx.y];
+  for (int i = 0; i < t; ++i)
+    out[base + (size_t)i * hw] = (uint8_t)(quant_symbol(col[i * kTemporalThreads], p) & 0xFFu);
 }
 
 // grid (ceil(hw / 128), c): un-zigzag, dequantize, inverse T lift -> i16.
@@ -194,11 +552,8 @@ __global__ void temporal_dequant(const uint8_t* __restrict__ in,
   size_t base = (size_t)blockIdx.y * t * hw + pos;
   int* col = buf + threadIdx.x;
   int q_step = step[blockIdx.y];
-  for (int i = 0; i < t; ++i) {
-    int s = in[base + (size_t)i * hw];
-    int q = (s & 1) ? (s + 1) >> 1 : -(s >> 1);
-    col[i * kTemporalThreads] = wmul(q, q_step);
-  }
+  for (int i = 0; i < t; ++i)
+    col[i * kTemporalThreads] = dequant(in[base + (size_t)i * hw], q_step);
   lift_column(col, t, st);
   for (int i = 0; i < t; ++i)
     out[base + (size_t)i * hw] = (int16_t)col[i * kTemporalThreads];
@@ -217,6 +572,25 @@ __global__ void temporal_lift(const int32_t* in, int32_t* out, int t, int hw,
   for (int i = 0; i < t; ++i) col[i * kTemporalThreads] = in[base + (size_t)i * hw];
   lift_column(col, t, st);
   for (int i = 0; i < t; ++i) out[base + (size_t)i * hw] = col[i * kTemporalThreads];
+}
+
+// grid-stride over n in [0, 2^31) for each of `count` quantizers: counts
+// the n whose quotient() differs from floor(n / step).
+__global__ void reciprocal_mismatches(const QuantParams* __restrict__ qp,
+                                      int count,
+                                      unsigned long long* __restrict__ bad) {
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (int k = 0; k < count; ++k) {
+    const QuantParams p = qp[k];
+    const unsigned long long d = (unsigned)p.step;
+    unsigned long long miss = 0;
+    for (unsigned n = blockIdx.x * blockDim.x + threadIdx.x; n < 0x80000000u;
+         n += stride) {
+      const unsigned long long q = quotient(n, p.m, p.l);
+      miss += (q * d > n || (q + 1) * d <= n) ? 1 : 0;
+    }
+    if (miss) atomicAdd(bad, miss);
+  }
 }
 
 Steps make_steps(int n, const int* coeff, const int* predict, int sub) {
@@ -238,100 +612,178 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 unsigned cdiv(size_t a, size_t b) { return (unsigned)((a + b - 1) / b); }
 
-}  // namespace
+// spatial_tiles' grid: one block per tile of each of `planes` frames.
+dim3 tile_grid(int h, int w, int halo, int planes) {
+  return dim3(cdiv(w, kTileW), cdiv(h, kWinH - 2 * halo), (unsigned)planes);
+}
 
-// Forward: i16 volume (c, t, h, w) -> u8 symbols.  Scratch: tmp32 holds the
-// W-lifted rows (c*t*h*w int32), tmp16 the spatially lifted volume (int16).
-// split = 1 follows the TPU kernel's split spatial path (frames beyond its
-// one-block budget, lift_kernels.py:267-291), which stores int16 between
-// the W and H passes: the row pass then writes tmp16 and the column pass
-// lifts tmp16 in place (tmp32 unused).  step / dead_zone: (c,) int32 on
-// the device.  coeff / predict: host arrays of n forward steps.  Returns
-// the first CUDA error of the launches.
-extern "C" int alc_forward_quant(const void* vol, void* tmp32, void* tmp16,
-                                 void* out, const void* step,
-                                 const void* dead_zone, int c, int t, int h,
-                                 int w, int n, const int* coeff,
-                                 const int* predict, int split, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  Steps st = make_steps(n, coeff, predict, 0);
-  size_t row_smem = (size_t)w * sizeof(int);
-  size_t col_smem = (size_t)h * kStrip * sizeof(int);
-  size_t t_smem = (size_t)t * kTemporalThreads * sizeof(int);
-  dim3 row_grid((unsigned)((size_t)c * t * h));
-  dim3 col_grid(cdiv(w, kStrip), c * t), col_block(kStrip, 16);
-  int16_t* t16 = (int16_t*)tmp16;
+// Whether the n steps given equal filter B's in mode M.
+template <int B, int M>
+bool is_filter(const Steps& st) {
+  using F = Filter<B, M>;
+  if (st.n != F::n || st.sub != (int)F::sub) return false;
+  for (int k = 0; k < F::n; ++k)
+    if (st.coeff[k] != F::coeff(k) || st.predict[k] != (int)F::predict(k)) return false;
+  return true;
+}
+
+bool aligned(const void* p, size_t bytes) { return (uintptr_t)p % bytes == 0; }
+
+// The two passes of K1 with filter F.
+template <class F>
+cudaError_t forward_quant_run(const int16_t* vol, int16_t* tmp16, uint8_t* out,
+                              const QuantParams* qp, int c, int t, int h, int w,
+                              int halo, int split, const Steps& st,
+                              cudaStream_t s) {
+  const bool fast = fast_frame(h, w) && aligned(vol, 16) && aligned(tmp16, 16);
+  const dim3 grid = tile_grid(h, w, halo, c * t);
+  if (fast)
+    spatial_tiles<F, true, true><<<grid, kTileThreads, 0, s>>>(vol, tmp16, h, w, halo, split);
+  else
+    spatial_tiles<F, true, false><<<grid, kTileThreads, 0, s>>>(vol, tmp16, h, w, halo, split);
   cudaError_t e;
-  if ((e = allow_smem(temporal_quant, t_smem))) return e;
-  if (split) {
-    if ((e = allow_smem(row_lift<int16_t, int16_t>, row_smem))) return e;
-    if ((e = allow_smem(col_lift<int16_t, int16_t>, col_smem))) return e;
-    row_lift<int16_t, int16_t><<<row_grid, 256, row_smem, s>>>(
-        (const int16_t*)vol, t16, w, st);
-    if ((e = cudaGetLastError())) return e;
-    col_lift<int16_t, int16_t><<<col_grid, col_block, col_smem, s>>>(
-        t16, t16, h, w, st);
-  } else {
-    if ((e = allow_smem(row_lift<int16_t, int32_t>, row_smem))) return e;
-    if ((e = allow_smem(col_lift<int32_t, int16_t>, col_smem))) return e;
-    row_lift<int16_t, int32_t><<<row_grid, 256, row_smem, s>>>(
-        (const int16_t*)vol, (int32_t*)tmp32, w, st);
-    if ((e = cudaGetLastError())) return e;
-    col_lift<int32_t, int16_t><<<col_grid, col_block, col_smem, s>>>(
-        (const int32_t*)tmp32, t16, h, w, st);
-  }
   if ((e = cudaGetLastError())) return e;
-  temporal_quant<<<dim3(cdiv((size_t)h * w, kTemporalThreads), c),
-                   kTemporalThreads, t_smem, s>>>(
-      t16, (uint8_t*)out, (const int32_t*)step, (const int32_t*)dead_zone, t,
-      h * w, st);
+  const size_t hw = (size_t)h * w;
+  if (t == kT64 && aligned(out, 2)) {
+    temporal_quant_t64<F><<<dim3(cdiv(hw / 2, kPairThreads), c), kPairThreads, 0, s>>>(
+        tmp16, out, qp, (int)hw);
+  } else {
+    const size_t t_smem = (size_t)t * kTemporalThreads * sizeof(int);
+    if ((e = allow_smem(temporal_quant, t_smem))) return e;
+    temporal_quant<<<dim3(cdiv(hw, kTemporalThreads), c), kTemporalThreads, t_smem, s>>>(
+        tmp16, out, qp, t, (int)hw, st);
+  }
   return cudaGetLastError();
 }
 
-// Inverse: u8 symbols (c, t, h, w) -> i16 volume.  Scratch: tmp16 holds the
-// temporal pass's int16 output, tmp32 the H-lifted columns (int32).  split
-// = 1 stores int16 between the H and W passes, as the TPU kernel's split
-// spatial path does: the column pass lifts tmp16 in place and the row
-// pass reads it (tmp32 unused).  coeff / predict: host arrays of the n
-// inverse steps in application order (negated coefficients for the compat
-// inverse); sub = 1 for exact undo.
-extern "C" int alc_inverse_dequant(const void* sym, void* tmp16, void* tmp32,
-                                   void* out, const void* step, int c, int t,
-                                   int h, int w, int n, const int* coeff,
-                                   const int* predict, int sub, int split,
-                                   void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  Steps st = make_steps(n, coeff, predict, sub);
-  size_t row_smem = (size_t)w * sizeof(int);
-  size_t col_smem = (size_t)h * kStrip * sizeof(int);
-  size_t t_smem = (size_t)t * kTemporalThreads * sizeof(int);
-  dim3 row_grid((unsigned)((size_t)c * t * h));
-  dim3 col_grid(cdiv(w, kStrip), c * t), col_block(kStrip, 16);
-  int16_t* t16 = (int16_t*)tmp16;
+// The two passes of K4 with filter F.
+template <class F>
+cudaError_t inverse_dequant_run(const uint8_t* sym, int16_t* tmp16, int16_t* out,
+                                const int32_t* step, int c, int t, int h, int w,
+                                int halo, int split, const Steps& st,
+                                cudaStream_t s) {
+  const size_t hw = (size_t)h * w;
   cudaError_t e;
-  if ((e = allow_smem(temporal_dequant, t_smem))) return e;
-  temporal_dequant<<<dim3(cdiv((size_t)h * w, kTemporalThreads), c),
-                     kTemporalThreads, t_smem, s>>>(
-      (const uint8_t*)sym, t16, (const int32_t*)step, t, h * w, st);
-  if ((e = cudaGetLastError())) return e;
-  if (split) {
-    if ((e = allow_smem(col_lift<int16_t, int16_t>, col_smem))) return e;
-    if ((e = allow_smem(row_lift<int16_t, int16_t>, row_smem))) return e;
-    col_lift<int16_t, int16_t><<<col_grid, col_block, col_smem, s>>>(
-        t16, t16, h, w, st);
-    if ((e = cudaGetLastError())) return e;
-    row_lift<int16_t, int16_t><<<row_grid, 256, row_smem, s>>>(
-        t16, (int16_t*)out, w, st);
+  if (t == kT64 && aligned(sym, 2)) {
+    temporal_dequant_t64<F><<<dim3(cdiv(hw / 2, kPairThreads), c), kPairThreads, 0, s>>>(
+        sym, tmp16, step, (int)hw);
   } else {
-    if ((e = allow_smem(col_lift<int16_t, int32_t>, col_smem))) return e;
-    if ((e = allow_smem(row_lift<int32_t, int16_t>, row_smem))) return e;
-    col_lift<int16_t, int32_t><<<col_grid, col_block, col_smem, s>>>(
-        t16, (int32_t*)tmp32, h, w, st);
-    if ((e = cudaGetLastError())) return e;
-    row_lift<int32_t, int16_t><<<row_grid, 256, row_smem, s>>>(
-        (const int32_t*)tmp32, (int16_t*)out, w, st);
+    const size_t t_smem = (size_t)t * kTemporalThreads * sizeof(int);
+    if ((e = allow_smem(temporal_dequant, t_smem))) return e;
+    temporal_dequant<<<dim3(cdiv(hw, kTemporalThreads), c), kTemporalThreads, t_smem, s>>>(
+        sym, tmp16, step, t, (int)hw, st);
   }
+  if ((e = cudaGetLastError())) return e;
+  const bool fast = fast_frame(h, w) && aligned(tmp16, 16) && aligned(out, 16);
+  const dim3 grid = tile_grid(h, w, halo, c * t);
+  if (fast)
+    spatial_tiles<F, false, true><<<grid, kTileThreads, 0, s>>>(tmp16, out, h, w, halo, split);
+  else
+    spatial_tiles<F, false, false><<<grid, kTileThreads, 0, s>>>(tmp16, out, h, w, halo, split);
   return cudaGetLastError();
+}
+
+bool bad_halo(int halo, int n) {
+  return halo < n || halo > kHaloW || halo % 2 != 0;
+}
+
+}  // namespace
+
+// Forward (K1): i16 volume (c, t, h, w) -> u8 symbols, through tmp16 (the
+// spatially lifted int16 volume).  qparams: (c,) QuantParams on the device
+// (step >= 1, dead zone >= 0).  coeff / predict: host arrays of the n
+// forward steps, which must be one of the three filters.  halo: rows of
+// halo a tile loads above and below (even, n <= halo <= 8).  split = 1
+// stores int16 between the W and H lifts (the TPU's split spatial path on
+// frames beyond its one-block budget, lift_kernels.py:267-291).  Returns
+// the first CUDA error of the launches (cudaErrorInvalidValue for steps or
+// a halo the kernels do not take).
+extern "C" int alc_forward_quant(const void* vol, void* tmp16, void* out,
+                                 const void* qparams, int c, int t, int h,
+                                 int w, int n, const int* coeff,
+                                 const int* predict, int halo, int split,
+                                 void* stream) {
+  const Steps st = make_steps(n, coeff, predict, 0);
+  if (bad_halo(halo, n)) return cudaErrorInvalidValue;
+  const auto* v = (const int16_t*)vol;
+  auto* t16 = (int16_t*)tmp16;
+  auto* o = (uint8_t*)out;
+  const auto* qp = (const QuantParams*)qparams;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_filter<0, kForward>(st))
+    return forward_quant_run<Filter<0, kForward>>(v, t16, o, qp, c, t, h, w, halo, split, st, s);
+  if (is_filter<1, kForward>(st))
+    return forward_quant_run<Filter<1, kForward>>(v, t16, o, qp, c, t, h, w, halo, split, st, s);
+  if (is_filter<2, kForward>(st))
+    return forward_quant_run<Filter<2, kForward>>(v, t16, o, qp, c, t, h, w, halo, split, st, s);
+  return cudaErrorInvalidValue;
+}
+
+// Inverse (K4): u8 symbols (c, t, h, w) -> i16 volume, through tmp16 (the
+// temporal pass's int16 output).  step: (c,) int32 on the device.  coeff /
+// predict: host arrays of the n inverse steps in application order
+// (negated coefficients for the compat inverse); sub = 1 for exact undo.
+// halo and split as for alc_forward_quant (split stores int16 between the
+// H and W lifts).
+extern "C" int alc_inverse_dequant(const void* sym, void* tmp16, void* out,
+                                   const void* step, int c, int t, int h, int w,
+                                   int n, const int* coeff, const int* predict,
+                                   int sub, int halo, int split, void* stream) {
+  const Steps st = make_steps(n, coeff, predict, sub);
+  if (bad_halo(halo, n)) return cudaErrorInvalidValue;
+  const auto* in = (const uint8_t*)sym;
+  auto* t16 = (int16_t*)tmp16;
+  auto* o = (int16_t*)out;
+  const auto* q = (const int32_t*)step;
+  cudaStream_t s = (cudaStream_t)stream;
+#define ALC_INVERSE(B, M)                                                      \
+  if (is_filter<B, M>(st))                                                     \
+    return inverse_dequant_run<Filter<B, M>>(in, t16, o, q, c, t, h, w, halo, \
+                                             split, st, s);
+  ALC_INVERSE(0, kInverseCompat)
+  ALC_INVERSE(1, kInverseCompat)
+  ALC_INVERSE(2, kInverseCompat)
+  ALC_INVERSE(0, kInverseExact)
+  ALC_INVERSE(1, kInverseExact)
+  ALC_INVERSE(2, kInverseExact)
+#undef ALC_INVERSE
+  return cudaErrorInvalidValue;
+}
+
+// Counts, over every n in [0, 2^31) and each of the `count` quantizers in
+// qparams (device), the n where the forward kernels' reciprocal quotient
+// differs from floor(n / step); writes the total to *bad (device, u64).
+extern "C" int alc_reciprocal_mismatches(const void* qparams, int count,
+                                         void* bad, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if ((e = cudaMemsetAsync(bad, 0, sizeof(unsigned long long), s))) return e;
+  reciprocal_mismatches<<<132 * 8, 256, 0, s>>>((const QuantParams*)qparams, count,
+                                                (unsigned long long*)bad);
+  return cudaGetLastError();
+}
+
+// The tiles spatial_tiles lifts on an (h, w) frame (16-byte aligned
+// volumes) with `halo` rows of halo, in block order (rows of tiles outer):
+// 8 ints a tile, the stored rows [r0, r1) and columns [c0, c1), then the
+// window's rows and columns clipped to the frame.  Writes at most `cap`
+// tiles to out (host memory); returns the number of tiles, or -1 for a
+// halo the kernels do not take.
+extern "C" int alc_tile_windows(int h, int w, int halo, int* out, int cap) {
+  if (halo < 0 || halo > kHaloW || halo % 2 != 0) return -1;
+  const dim3 grid = tile_grid(h, w, halo, 1);
+  const bool fast = fast_frame(h, w);
+  int k = 0;
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx, ++k) {
+      if (k >= cap) continue;
+      const TileWindow t = tile_window((int)bx, (int)by, h, w, halo, fast);
+      const int row[8] = {t.r0, t.r1, t.c0, t.c1,
+                          std::max(t.wr0, 0), std::min(t.wr0 + kWinH, h),
+                          std::max(t.wc0, 0), std::min(t.wc0 + kWinW, w)};
+      std::copy(row, row + 8, out + 8 * k);
+    }
+  return k;
 }
 
 // Plain forward: i32 volume (c, t, h, w) -> i32 coefficients, W then H then

@@ -22,6 +22,11 @@ into a W pass and an H pass with an int16 store between them
 (lift_kernels.py:267-291); the fused kernels here store int16 there too
 on those frames (:func:`split_frame`).  The plain 3D lift (the rdo, deep
 and multi-level modes' level 0) stores int32 throughout and never wraps.
+
+The fused CUDA kernels lift each frame in halo tiles (:func:`tile_windows`:
+a window of ``_WIN_H`` x ``_WIN_W`` around each stored tile, with
+:func:`spatial_halo` rows and ``_HALO_W`` columns of halo) and quantize
+with a per-channel reciprocal of the step (:func:`reciprocal`).
 """
 
 from __future__ import annotations
@@ -36,7 +41,9 @@ from ..wavelet import forward_3d_inter, inverse_3d_inter, lift_axis, lift_steps
 
 __all__ = ["forward_quant", "inverse_dequant", "forward_quant_plain",
            "inverse_dequant_plain", "forward_3d", "inverse_3d",
-           "forward_3d_plain", "inverse_3d_plain"]
+           "forward_3d_plain", "inverse_3d_plain", "reciprocal",
+           "spatial_halo", "split_frame", "tile_windows",
+           "kernel_tile_windows"]
 
 #: frame budget of the TPU's one-block spatial kernel (lift_kernels.py
 #: _FRAME_BYTES); larger int16 frames take its split spatial path
@@ -45,6 +52,10 @@ _FRAME_BYTES = 9 * 1024 * 1024
 _SMEM_LIMIT = 232448
 _STRIP = 16           # columns per column-lift block (csrc/lift.cu kStrip)
 _T_THREADS = 128      # threads per temporal block (kTemporalThreads)
+# the fused kernels' spatial tiles (csrc/lift.cu kWinH, kWinW, kHaloW, kSeg)
+_WIN_H, _WIN_W, _HALO_W, _SEG = 64, 256, 8, 8
+_TILE_W = _WIN_W - 2 * _HALO_W
+_T_REG = 64           # T the temporal kernels hold in registers (kT64)
 
 
 def _per_channel(v, c: int, device) -> torch.Tensor:
@@ -71,6 +82,47 @@ def split_frame(h: int, w: int) -> bool:
 def _int16(x: torch.Tensor) -> torch.Tensor:
     """The int16 truncating store of an int32 tensor, read back as int32."""
     return x.to(torch.int16).to(torch.int32)
+
+
+def spatial_halo(wavelet) -> int:
+    """Rows of halo the fused kernels load above and below a tile: one per
+    lifting step, the farthest a step's result can travel."""
+    return len(lift_steps(wavelet))
+
+
+def tile_windows(h: int, w: int, halo: int):
+    """The tiles of the fused kernels' spatial pass on an (h, w) frame:
+    ``((r0, r1), (c0, c1), (wr0, wr1), (wc0, wc1))`` per tile — the rows
+    and columns it stores, and the window it lifts them in (clipped to the
+    frame; the window's cut edges lie ``halo`` rows and ``_HALO_W``
+    columns or more from the stored tile).  On frames of at least
+    ``_WIN_H`` x ``_WIN_W`` with W a multiple of ``_SEG`` the windows are
+    clamped into the frame (csrc/lift.cu spatial_tiles, FAST).  The
+    kernel's own tiles (:func:`kernel_tile_windows`) are held equal to
+    these on the card."""
+    fast = h >= _WIN_H and w >= _WIN_W and w % _SEG == 0
+    tile_h = _WIN_H - 2 * halo
+    tiles = []
+    for r0 in range(0, h, tile_h):
+        wr0 = min(max(r0 - halo, 0), h - _WIN_H) if fast else r0 - halo
+        for c0 in range(0, w, _TILE_W):
+            wc0 = min(max(c0 - _HALO_W, 0), w - _WIN_W) if fast else c0 - _HALO_W
+            tiles.append(((r0, min(r0 + tile_h, h)), (c0, min(c0 + _TILE_W, w)),
+                          (max(wr0, 0), min(wr0 + _WIN_H, h)),
+                          (max(wc0, 0), min(wc0 + _WIN_W, w))))
+    return tiles
+
+
+def reciprocal(step: int) -> tuple[int, int]:
+    """``(m, l)`` with ``floor(n / step) == (m * n) >> (31 + l)`` for every
+    0 <= n < 2^31 (Granlund–Montgomery: ``l = ceil(log2 step)``,
+    ``m = ceil(2^(31+l) / step) < 2^32``); the fused forward kernel
+    divides by ``step`` as ``__umulhi(m, 2n) >> l``."""
+    step = int(step)
+    if step < 1:
+        raise ValueError(f"quantizer step must be >= 1, got {step}")
+    l = (step - 1).bit_length()
+    return -(-(1 << (31 + l)) // step), l
 
 
 # ── plain versions ──────────────────────────────────────────────
@@ -127,12 +179,16 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("lift")
     if not getattr(lib, "_alc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.alc_forward_quant.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                          p, p, i, p]
+        lib.alc_forward_quant.argtypes = [p, p, p, p, i, i, i, i, i,
+                                          p, p, i, i, p]
         lib.alc_forward_quant.restype = i
-        lib.alc_inverse_dequant.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                            p, p, i, i, p]
+        lib.alc_inverse_dequant.argtypes = [p, p, p, p, i, i, i, i, i,
+                                            p, p, i, i, i, p]
         lib.alc_inverse_dequant.restype = i
+        lib.alc_reciprocal_mismatches.argtypes = [p, i, p, p]
+        lib.alc_reciprocal_mismatches.restype = i
+        lib.alc_tile_windows.argtypes = [i, i, i, p, i]
+        lib.alc_tile_windows.restype = i
         lib.alc_forward_3d.argtypes = [p, p, i, i, i, i, i, p, p, p]
         lib.alc_forward_3d.restype = i
         lib.alc_inverse_3d.argtypes = [p, p, i, i, i, i, i, p, p, i, p]
@@ -148,35 +204,79 @@ def _step_arrays(steps):
     return n, coeff, predict
 
 
-def _check_cuda_shape(x: torch.Tensor) -> None:
+def _check_cuda_shape(x: torch.Tensor, *, fused: bool) -> None:
+    """Raise for a shape the kernels cannot take.  The fused kernels (K1 /
+    K4) tile frames of any size; their temporal pass holds T = 64 in
+    registers and other T in shared memory.  The plain 3D lift (K7) holds
+    a whole row, a column strip and a temporal column in shared memory."""
     c, t, h, w = x.shape
-    need = {"row": w * 4, "column": h * _STRIP * 4, "temporal": t * _T_THREADS * 4}
+    need = {"temporal": 0 if fused and t == _T_REG else t * _T_THREADS * 4}
+    if not fused:
+        need.update(row=w * 4, column=h * _STRIP * 4)
     for what, b in need.items():
         if b > _SMEM_LIMIT:
             raise ValueError(f"{what} pass needs {b} B of shared memory for "
                              f"shape {tuple(x.shape)} (limit {_SMEM_LIMIT})")
-    if c * t > 65535 or c > 65535 or c * t * h > 2**31 - 1:
+    if c * t > 65535 or c > 65535 or (not fused and c * t * h > 2**31 - 1):
         raise ValueError(f"C·T = {c * t} (C·T·H = {c * t * h}) exceeds "
                          f"the grid limit")
 
 
+def _quant_params(step, dead_zone, c: int, device) -> torch.Tensor:
+    """(C, 4) int32 on ``device``: each channel's step, dead zone and the
+    step's reciprocal ``(m, l)`` (csrc/lift.cu QuantParams)."""
+    def host(v):
+        vals = torch.as_tensor(v).reshape(-1).tolist()
+        return vals * c if len(vals) == 1 else vals
+
+    rows = []
+    for s, dz in zip(host(step), host(dead_zone), strict=True):
+        if dz < 0:
+            raise ValueError(f"forward_quant: dead zone must be >= 0, got {dz}")
+        m, l = reciprocal(s)
+        rows.append((s, dz, m - (1 << 32) if m >= 1 << 31 else m, l))
+    return torch.tensor(rows, dtype=torch.int32).to(device)
+
+
+def reciprocal_mismatches(steps, device) -> int:
+    """On the card: how many (step, n) pairs, n over every non-negative
+    int32, the fused forward kernel's reciprocal divides wrongly."""
+    qp = _quant_params(list(steps), 0, len(steps), device)
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    _build.check(_lib().alc_reciprocal_mismatches(
+        qp.data_ptr(), len(steps), bad.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream), "reciprocal_mismatches")
+    return int(bad.item())
+
+
+def kernel_tile_windows(h: int, w: int, halo: int):
+    """The tiles the fused kernels' spatial pass lifts on an (h, w) frame,
+    as the CUDA library computes them for its launches, in the form of
+    :func:`tile_windows` (which the CPU tests hold; this ties it to the
+    kernel).  Needs the built library, not a card."""
+    cap = -(-w // _TILE_W) * -(-h // (_WIN_H - 2 * halo))
+    buf = (ctypes.c_int * (8 * cap))()
+    n = _lib().alc_tile_windows(h, w, halo, ctypes.addressof(buf), cap)
+    if n != cap:
+        raise ValueError(f"alc_tile_windows({h}, {w}, {halo}) gave {n} tiles, "
+                         f"expected {cap}")
+    return [tuple(tuple(buf[8 * k + j:8 * k + j + 2]) for j in range(0, 8, 2))
+            for k in range(n)]
+
+
 def _forward_quant_cuda(volume, wavelet, step, dead_zone):
     _check_volume(volume, torch.int16, "forward_quant")
-    _check_cuda_shape(volume)
+    _check_cuda_shape(volume, fused=True)
     vol = volume.contiguous()
     c, t, h, w = vol.shape
-    s = _per_channel(step, c, vol.device)
-    dz = _per_channel(dead_zone, c, vol.device)
-    split = split_frame(h, w)
-    tmp32 = torch.empty(0 if split else vol.shape, dtype=torch.int32,
-                        device=vol.device)
+    qp = _quant_params(step, dead_zone, c, vol.device)
     tmp16 = torch.empty_like(vol)
     out = torch.empty(vol.shape, dtype=torch.uint8, device=vol.device)
     n, coeff, predict = _step_arrays(lift_steps(wavelet))
     _build.check(_lib().alc_forward_quant(
-        vol.data_ptr(), tmp32.data_ptr(), tmp16.data_ptr(), out.data_ptr(),
-        s.data_ptr(), dz.data_ptr(), c, t, h, w, n,
-        ctypes.addressof(coeff), ctypes.addressof(predict), int(split),
+        vol.data_ptr(), tmp16.data_ptr(), out.data_ptr(), qp.data_ptr(),
+        c, t, h, w, n, ctypes.addressof(coeff), ctypes.addressof(predict),
+        spatial_halo(wavelet), int(split_frame(h, w)),
         torch.cuda.current_stream(vol.device).cuda_stream),
         "forward_quant")
     forward_quant.launches += 1
@@ -185,22 +285,19 @@ def _forward_quant_cuda(volume, wavelet, step, dead_zone):
 
 def _inverse_dequant_cuda(symbols, wavelet, step, exact):
     _check_volume(symbols, torch.uint8, "inverse_dequant")
-    _check_cuda_shape(symbols)
+    _check_cuda_shape(symbols, fused=True)
     sym = symbols.contiguous()
     c, t, h, w = sym.shape
     s = _per_channel(step, c, sym.device)
-    split = split_frame(h, w)
     tmp16 = torch.empty(sym.shape, dtype=torch.int16, device=sym.device)
-    tmp32 = torch.empty(0 if split else sym.shape, dtype=torch.int32,
-                        device=sym.device)
     out = torch.empty_like(tmp16)
     n, coeff, predict = _step_arrays(
         lift_steps(wavelet, inverse=True, exact=exact))
     _build.check(_lib().alc_inverse_dequant(
-        sym.data_ptr(), tmp16.data_ptr(), tmp32.data_ptr(), out.data_ptr(),
-        s.data_ptr(), c, t, h, w, n,
-        ctypes.addressof(coeff), ctypes.addressof(predict), int(exact),
-        int(split), torch.cuda.current_stream(sym.device).cuda_stream),
+        sym.data_ptr(), tmp16.data_ptr(), out.data_ptr(), s.data_ptr(),
+        c, t, h, w, n, ctypes.addressof(coeff), ctypes.addressof(predict),
+        int(exact), spatial_halo(wavelet), int(split_frame(h, w)),
+        torch.cuda.current_stream(sym.device).cuda_stream),
         "inverse_dequant")
     inverse_dequant.launches += 1
     return out
@@ -208,7 +305,7 @@ def _inverse_dequant_cuda(symbols, wavelet, step, exact):
 
 def _forward_3d_cuda(volume, wavelet):
     _check_volume(volume, torch.int32, "forward_3d")
-    _check_cuda_shape(volume)
+    _check_cuda_shape(volume, fused=False)
     vol = volume.contiguous()
     c, t, h, w = vol.shape
     out = torch.empty_like(vol)
@@ -224,7 +321,7 @@ def _forward_3d_cuda(volume, wavelet):
 
 def _inverse_3d_cuda(coeffs, wavelet, exact):
     _check_volume(coeffs, torch.int32, "inverse_3d")
-    _check_cuda_shape(coeffs)
+    _check_cuda_shape(coeffs, fused=False)
     vol = coeffs.contiguous()
     c, t, h, w = vol.shape
     out = torch.empty_like(vol)

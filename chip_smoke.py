@@ -11,16 +11,21 @@ Phases (any failure raises and exits non-zero before the last line):
 1. print the card's name and power limit; build the kernels from
    ``alice_codec_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. every kernel against its plain PyTorch version on the card, bit-exact:
-   at the main paths' full widths (a 64×1080×1920 chunk; all 1536 rANS
-   segments; compact / expand on the q=50 chroma planes; the plain 3D
-   lift at int32 in all three wavelets and both inverse modes) and at
-   small shapes (odd-padded volumes; int32 volumes far beyond int16;
-   sparse planes at densities 0-100 % with capacities that differ per
-   plane, and a hostile bitmap); with per-kernel timings; then a 4K
-   check (16×2160×3840, where the JAX package splits its spatial pass
-   into single-axis band kernels): the fused and the plain 3D lifts on
-   that chunk against their plain versions, and a dense q=90 and a deep
-   q=100 roundtrip of it;
+   at the main paths' full widths (a 64×1080×1920 chunk: the fused lifts
+   and the plain 3D lift at int32 in all three wavelets and both inverse
+   modes; all 1536 rANS segments; compact / expand on the q=50 chroma
+   planes) and at small shapes (odd-padded volumes; the fused lifts'
+   tile-edge shapes with per-channel steps and int16-wrapping
+   intermediates; int32 volumes far beyond int16; sparse planes at
+   densities 0-100 % with capacities that differ per plane, and a hostile
+   bitmap; the quantizer's reciprocal over every non-negative int32; the
+   fused lifts' tiles against ``lift.tile_windows``, the model the CPU
+   tests hold);
+   with per-kernel timings and the fused lifts' device time split by
+   kernel; then a 4K check (16×2160×3840, where the JAX package splits
+   its spatial pass into single-axis band kernels): the fused and the
+   plain 3D lifts on that chunk against their plain versions, and a
+   dense q=90 and a deep q=100 roundtrip of it;
 3. the committed JAX-written goldens (``tests/golden/torch``, its
    ``sparse/`` and its ``modes/``): the port decodes each container to
    the JAX decode and re-encodes each input to the same bytes, the
@@ -115,6 +120,14 @@ def device_profile(fn):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     return wall_ms, rows
+
+
+def kernel_split(fn) -> dict:
+    """Device ms of one call of ``fn`` by kernel (torch.profiler; kernels
+    under 0.01 ms left out), names without their argument lists."""
+    _, rows = device_profile(fn)
+    return {key.replace("(anonymous namespace)::", "").removeprefix(
+        "void ").split("(")[0]: ms for key, ms, _ in rows if ms > 0.01}
 
 
 def max_abs_err(a, b) -> int:
@@ -272,31 +285,77 @@ def main() -> int:
                     c = inverse_dequant_plain(sym, w_small, s2, exact=exact)
                     check(max_abs_err(b, c) == 0,
                           f"inverse_dequant small {w_small.name} exact={exact}")
+    # the tile edges of the fused kernels' spatial pass (one tile; ragged
+    # tiles in W and H; one tile column of a 1080-row frame; windows clamped
+    # into the frame) and T = 64 (the temporal pass in registers), C of 1-3
+    # with per-channel steps, on int16 inputs at ±256 and at ±30000 with
+    # step 160 (intermediates that wrap at the int16 stores) and random
+    # symbols at steps 64 and 160
+    tile_shapes = ((3, 2, 2, 2), (1, 4, 34, 130), (2, 6, 70, 258),
+                   (3, 4, 1080, 136), (2, 4, 130, 520), (1, 64, 64, 256),
+                   (2, 64, 34, 130))
+    for shape in tile_shapes:
+        c_s = shape[0]
+        st_c = torch.as_tensor(rng.integers(1, 65, c_s).astype(np.int32), device=dev)
+        v256 = torch.as_tensor(rng.integers(-256, 256, shape, dtype=np.int16),
+                               device=dev)
+        v30k = torch.as_tensor(rng.integers(-30000, 30000, shape, dtype=np.int16),
+                               device=dev)
+        sym_r = torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8),
+                                device=dev)
+        for w_small in WaveletType:
+            a = forward_quant(v256, w_small, st_c, st_c)
+            check(max_abs_err(a, forward_quant_plain(v256, w_small, st_c, st_c)) == 0,
+                  f"forward_quant {shape} {w_small.name}")
+            check(max_abs_err(forward_quant(v30k, w_small, 160, 160),
+                              forward_quant_plain(v30k, w_small, 160, 160)) == 0,
+                  f"forward_quant {shape} {w_small.name} at ±30000")
+            for exact in (False, True):
+                for sym, s2 in ((a, st_c), (sym_r, 64), (sym_r, 160)):
+                    check(max_abs_err(
+                        inverse_dequant(sym, w_small, s2, exact=exact),
+                        inverse_dequant_plain(sym, w_small, s2, exact=exact)) == 0,
+                          f"inverse_dequant {shape} {w_small.name} exact={exact}")
+    # the tiles the CPU tests hold (lift.tile_windows) are the kernel's
+    for h_t, w_t in sorted({s[2:] for s in tile_shapes} | {(H, W), (H4K, W4K)}):
+        for w_small in WaveletType:
+            halo = lift.spatial_halo(w_small)
+            check(lift.kernel_tile_windows(h_t, w_t, halo)
+                  == lift.tile_windows(h_t, w_t, halo),
+                  f"the kernel's tiles of a {h_t}x{w_t} frame (halo {halo}) "
+                  f"differ from lift.tile_windows")
     # the split-frame form (int16 between the W and H passes, as the TPU
     # stores it on frames beyond its one-block budget), forced here by
     # cutting the budget, on inputs whose intermediates leave int16
     budget = lift._FRAME_BYTES
     lift._FRAME_BYTES = 1024
     try:
-        big16 = torch.as_tensor(
-            rng.integers(-30000, 30000, (3, 4, 16, 256), dtype=np.int16),
-            device=dev)
-        sym16 = torch.as_tensor(
-            rng.integers(0, 256, (3, 4, 16, 256), dtype=np.uint8), device=dev)
-        for w_small in WaveletType:
-            check(max_abs_err(forward_quant(big16, w_small, 160, 160),
-                              forward_quant_plain(big16, w_small, 160, 160)) == 0,
-                  f"forward_quant split frame {w_small.name}")
-            for exact in (False, True):
-                check(max_abs_err(
-                    inverse_dequant(sym16, w_small, 160, exact=exact),
-                    inverse_dequant_plain(sym16, w_small, 160, exact=exact)) == 0,
-                      f"inverse_dequant split frame {w_small.name}")
+        for shape in ((3, 4, 16, 256), (2, 4, 130, 520)):
+            big16 = torch.as_tensor(
+                rng.integers(-30000, 30000, shape, dtype=np.int16), device=dev)
+            sym16 = torch.as_tensor(
+                rng.integers(0, 256, shape, dtype=np.uint8), device=dev)
+            for w_small in WaveletType:
+                check(max_abs_err(forward_quant(big16, w_small, 160, 160),
+                                  forward_quant_plain(big16, w_small, 160, 160)) == 0,
+                      f"forward_quant split frame {shape} {w_small.name}")
+                for exact in (False, True):
+                    check(max_abs_err(
+                        inverse_dequant(sym16, w_small, 160, exact=exact),
+                        inverse_dequant_plain(sym16, w_small, 160, exact=exact)) == 0,
+                          f"inverse_dequant split frame {shape} {w_small.name}")
     finally:
         lift._FRAME_BYTES = budget
+    # the forward kernels' reciprocal of the step: every non-negative int32
+    # numerator at every step 1-64 and the larger steps above
+    recip_bad = lift.reciprocal_mismatches(list(range(1, 65)) + [160, 1000], dev)
+    check(recip_bad == 0, f"the quantizer's reciprocal divides wrongly "
+                          f"{recip_bad} times")
     print("small shapes: forward_quant / inverse_dequant bit-exact "
           "(3 wavelets, both inverse modes, random symbols at steps 64, 160; "
-          "split frames)")
+          f"tile-edge shapes {list(tile_shapes)}; split frames); the "
+          "kernel's tiles equal lift.tile_windows; the reciprocal exact for "
+          "every n < 2^31 at steps 1-64, 160, 1000")
     # the plain 3D lift at small shapes, int32 far beyond int16 (an int16
     # store between its passes would wrap here)
     for shape in ((3, 6, 38, 52), (1, 4, 70, 34), (2, 2, 2, 2)):
@@ -319,37 +378,68 @@ def main() -> int:
     print("small shapes: forward_3d / inverse_3d bit-exact (3 wavelets, both "
           "inverse modes, int32 values to ±2^20)")
 
-    # K1 at full width
+    # K1 / K4 at full width: every wavelet, both inverse modes, bit-exact,
+    # each timed; the main path's (CDF 5/3) numbers go to the kernels line,
+    # with the device time of one wrapper call split by kernel
     chans = pipeline._color_pad(rgb, padded)
-    sym_k = forward_quant(chans, wt, step, step)
-    sym_p = forward_quant_plain(chans, wt, step, step)
-    err = max_abs_err(sym_k, sym_p)
-    check(err == 0, f"forward_quant differs from its plain version by {err}")
-    del sym_p
-    stats["forward_quant"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: forward_quant(chans, wt, step, step), 10),
-        plain_ms=time_ms(lambda: forward_quant_plain(chans, wt, step, step), 2),
-        bound_ms=bound_ms(chans.numel() * 2 + sym_k.numel()))
-    torch.cuda.empty_cache()
-
-    # K4 at full width, both inverse modes
     steps3 = torch.full((3,), step, dtype=torch.int32, device=dev)
-    err = 0
-    for exact in (False, True):
-        v_k = inverse_dequant(sym_k, wt, steps3, exact=exact)
-        v_p = inverse_dequant_plain(sym_k, wt, steps3, exact=exact)
-        e = max_abs_err(v_k, v_p)
-        check(e == 0, f"inverse_dequant exact={exact} differs by {e}")
-        err = max(err, e)
-        del v_k, v_p
+    k14 = {}
+    for w_full in WaveletType:
+        sym_k = forward_quant(chans, w_full, step, step)
+        sym_p = forward_quant_plain(chans, w_full, step, step)
+        err1 = max_abs_err(sym_k, sym_p)
+        check(err1 == 0, f"forward_quant {w_full.name} differs from its plain "
+                         f"version by {err1}")
+        del sym_p
+        err4 = 0
+        for exact in (False, True):
+            v_k = inverse_dequant(sym_k, w_full, steps3, exact=exact)
+            v_p = inverse_dequant_plain(sym_k, w_full, steps3, exact=exact)
+            e = max_abs_err(v_k, v_p)
+            check(e == 0, f"inverse_dequant {w_full.name} exact={exact} differs "
+                          f"by {e}")
+            err4 = max(err4, e)
+            del v_k, v_p
+        torch.cuda.empty_cache()
+        k14[w_full] = dict(
+            forward_quant=dict(
+                max_abs_err=err1,
+                ms=time_ms(lambda: forward_quant(chans, w_full, step, step), 10),
+                bound_ms=bound_ms(chans.numel() * 2 + sym_k.numel())),
+            inverse_dequant=dict(
+                max_abs_err=err4,
+                ms=time_ms(lambda: inverse_dequant(sym_k, w_full, steps3), 10),
+                bound_ms=bound_ms(sym_k.numel() + sym_k.numel() * 2)))
+        for name, fn in (
+                ("forward_quant", lambda: forward_quant(chans, w_full, step, step)),
+                ("inverse_dequant", lambda: inverse_dequant(sym_k, w_full, steps3))):
+            k14[w_full][name]["kernel_split"] = split = kernel_split(fn)
+            # the profiler can miss kernels: the split must hold both passes
+            passes = ("spatial_tiles", "temporal_" + name.split("_")[1])
+            check(all(any(k.startswith(p) for k in split) for p in passes),
+                  f"{name} {w_full.name}: the profile of one call lacks a "
+                  f"kernel of {passes}: {split}")
+            print(f"{name} {w_full.name}: {k14[w_full][name]['ms']:.3f} ms per "
+                  f"call (bytes bound {k14[w_full][name]['bound_ms']:.3f} ms); "
+                  f"one call by kernel: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+                  + f" [{card}]")
+        if w_full == wt:
+            main_sym = sym_k
+        del sym_k
+        torch.cuda.empty_cache()
+    sym_k = main_sym
+    for name in ("forward_quant", "inverse_dequant"):
+        stats[name] = dict(k14[wt][name], ms_by_wavelet={
+            w_full.name: k14[w_full][name]["ms"] for w_full in WaveletType})
+    stats["forward_quant"]["plain_ms"] = time_ms(
+        lambda: forward_quant_plain(chans, wt, step, step), 2)
+    stats["inverse_dequant"]["plain_ms"] = time_ms(
+        lambda: inverse_dequant_plain(sym_k, wt, steps3), 2)
+    del main_sym
     torch.cuda.empty_cache()
-    stats["inverse_dequant"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: inverse_dequant(sym_k, wt, steps3), 10),
-        plain_ms=time_ms(lambda: inverse_dequant_plain(sym_k, wt, steps3), 2),
-        bound_ms=bound_ms(sym_k.numel() + sym_k.numel() * 2))
-    torch.cuda.empty_cache()
+    print(f"full width: forward_quant / inverse_dequant bit-exact at {T}x{H}x{W} "
+          "(3 wavelets, both inverse modes)")
 
     # K7 at full width: the plain 3D lift of the int32 chunk, all three
     # wavelets, both inverse modes
@@ -514,24 +604,31 @@ def main() -> int:
     del sym50, trows50, bm_k, vals_k, out_k, mask, nz
     torch.cuda.empty_cache()
     # 4K: frames the JAX package's fused spatial kernel cannot hold, so it
-    # splits the pass into single-axis band kernels (K7b); here row_lift
-    # and col_lift run at every frame size.  The fused and the plain 3D
-    # lifts on a 4K chunk against their plain versions, then a dense q=90
-    # and a deep q=100 roundtrip of it with the launches of the lift
-    # wrappers (each launch runs one row_lift and one col_lift).
+    # splits the pass into single-axis band kernels (K7b) with an int16
+    # store between them.  Here the fused kernels (K1 / K4) take their
+    # spatial tile kernel with that int16 store, and the plain 3D lift
+    # (K7) its row_lift and col_lift, at every frame size.  Both on a 4K
+    # chunk against their plain versions, then a dense q=90 and a deep
+    # q=100 roundtrip of it with the launches of the lift wrappers (each
+    # K7 launch runs one row_lift and one col_lift).
     t0 = time.perf_counter()
     rgb4k = torch.as_tensor(_test_chunk(T4K, H4K, W4K, seed=1), device=dev)
     padded4k = (W4K, H4K, T4K)
     ch16 = pipeline._color_pad(rgb4k, padded4k)
+    check(lift.split_frame(H4K, W4K), "a 4K frame is not split")
     s4 = forward_quant(ch16, wt, step, step)
     check(max_abs_err(s4, forward_quant_plain(ch16, wt, step, step)) == 0,
           "forward_quant differs from its plain version at 4K")
-    del ch16
     for exact in (False, True):
         check(max_abs_err(inverse_dequant(s4, wt, step, exact=exact),
                           inverse_dequant_plain(s4, wt, step, exact=exact)) == 0,
               f"inverse_dequant exact={exact} differs at 4K")
-    del s4
+    k14_4k = {"forward_quant": time_ms(lambda: forward_quant(ch16, wt, step, step), 5),
+              "inverse_dequant": time_ms(lambda: inverse_dequant(s4, wt, step), 5)}
+    print(f"4K {T4K}x{H4K}x{W4K}: forward_quant {k14_4k['forward_quant']:.3f} ms, "
+          f"inverse_dequant {k14_4k['inverse_dequant']:.3f} ms per call (split "
+          f"frames: int16 between the spatial axes) [{card}]")
+    del ch16, s4
     torch.cuda.empty_cache()
     ch32 = pipeline._color_pad(rgb4k, padded4k, torch.int32)
     for w4 in (wt, WaveletType.HAAR):
@@ -562,9 +659,11 @@ def main() -> int:
     lossless = Alc3Codec(100, "haar")
     out4d = lossless.decode(lossless.encode(rgb4k), exact=True)
     torch.cuda.synchronize()
-    k7b_launches = sum(launch_counts()[k] for k in (
-        "forward_quant", "inverse_dequant", "forward_3d", "inverse_3d"))
-    check(k7b_launches == 4, f"4K lift launches {launch_counts()}")
+    launches4k = launch_counts()
+    check(launches4k["forward_quant"] == launches4k["inverse_dequant"] == 1,
+          f"4K lift launches {launches4k}")
+    k7b_launches = launches4k["forward_3d"] + launches4k["inverse_3d"]
+    check(k7b_launches == 2, f"4K lift launches {launches4k}")
     check(bool(torch.equal(out4d, rgb4k)),
           "deep q=100 at 4K: exact decode differs from the input")
     mse4 = float(((out4.float() - rgb4k.float()) ** 2).mean().item())
@@ -575,7 +674,8 @@ def main() -> int:
           f"{spatial_ms:.3f} ms in one forward_3d (plain W+H lift "
           f"{k7b_plain:.1f} ms); dense q=90 PSNR "
           f"{10 * np.log10(255.0 ** 2 / mse4):.4f} dB, deep q=100 lossless; "
-          f"{k7b_launches} lift launches, {time.perf_counter() - t0:.1f} s "
+          f"{k7b_launches} K7 launches (row_lift + col_lift), "
+          f"{time.perf_counter() - t0:.1f} s "
           f"[{card}]")
     del rgb4k, out4, out4d, d4, lossless
     torch.cuda.empty_cache()
@@ -1061,9 +1161,10 @@ def main() -> int:
         "expand": ("sparse.cu", "alice_codec_tpu/ops/pallas/sparse_kernels.py:697"),
         "forward_3d": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:328"),
         "inverse_3d": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:342"),
-        # K7b: the split spatial pass, whose counterpart is the row and
-        # column kernels inside every lift wrapper; its launches are the
-        # lift wrappers' launches on the 4K roundtrips of phase 2
+        # K7b: the split spatial pass, whose counterpart in the plain 3D
+        # lift (K7) is its row and column kernels (the fused K1 / K4 split
+        # inside their spatial tile kernel); its launches are K7's on the
+        # 4K deep roundtrip of phase 2
         "row_col_lift": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:138"),
         "encode_nway": ("rans_nway.cu", "alice_codec_tpu/ops/pallas/rans_kernel.py:125"),
         "decode_nway": ("rans_nway.cu",
@@ -1077,7 +1178,7 @@ def main() -> int:
     for name, (src, replaces) in sources.items():
         s = stats[name]
         if name == "row_col_lift":
-            launches, by = k7b_launches, {"4k_q90_and_q100": k7b_launches}
+            launches, by = k7b_launches, {"4k_q100": k7b_launches}
         else:
             launches = by_path[main_path.get(name, "sparse_q50")][name]
             by = {path: n[name] for path, n in by_path.items()}
@@ -1090,7 +1191,8 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
         })
-        for extra in ("kernel_ms", "plain_streams"):
+        for extra in ("kernel_ms", "plain_streams", "ms_by_wavelet",
+                      "kernel_split"):
             if extra in s:
                 kernels[-1][extra] = s[extra]
     print("kernels: " + json.dumps(

@@ -44,7 +44,14 @@ def _equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 @pytest.mark.parametrize("wt", list(WaveletType))
-@pytest.mark.parametrize("shape", [(3, 2, 2, 2), (3, 6, 38, 52), (1, 4, 70, 34)])
+@pytest.mark.parametrize("shape", [
+    (3, 2, 2, 2), (3, 6, 38, 52), (1, 4, 70, 34),
+    # tile edges of the spatial pass: one tile, ragged tiles in W and H,
+    # one tile column of a 1080-row frame
+    (1, 4, 34, 130), (2, 6, 70, 258), (3, 4, 1080, 136),
+    # windows clamped into the frame (its fast form), and T = 64 (the
+    # temporal pass in registers) with either spatial form
+    (2, 4, 130, 520), (1, 64, 64, 256), (2, 64, 34, 130)])
 def test_lift_kernels_match_plain(cuda, wt, shape):
     rng = np.random.default_rng(sum(shape))
     vol = torch.as_tensor(
@@ -56,12 +63,42 @@ def test_lift_kernels_match_plain(cuda, wt, shape):
     torch.cuda.synchronize()
     assert lift.forward_quant.launches == n + 1
     assert _equal(sym, lift.forward_quant_plain(vol, wt, step, step))
+    # intermediates far outside int16 (wrapping at the int16 store)
+    big = torch.as_tensor(
+        rng.integers(-30000, 30000, size=shape, dtype=np.int16), device=cuda)
+    assert _equal(lift.forward_quant(big, wt, 160, 160),
+                  lift.forward_quant_plain(big, wt, 160, 160))
     rand = torch.as_tensor(rng.integers(0, 256, size=shape, dtype=np.uint8),
                            device=cuda)
     for exact in (False, True):
         for s, st in ((sym, step), (rand, 64), (rand, 160)):
             got = lift.inverse_dequant(s, wt, st, exact=exact)
             assert _equal(got, lift.inverse_dequant_plain(s, wt, st, exact=exact))
+
+
+@pytest.mark.parametrize("wt", list(WaveletType))
+def test_lift_tile_windows_match_kernel(cuda, wt):
+    """The tile geometry tests/test_torch_lift_tiles.py holds on the CPU
+    (lift.tile_windows) is the one the CUDA library launches with."""
+    halo = lift.spatial_halo(wt)
+    for h, w in ((2, 2), (10, 14), (34, 130), (70, 258), (64, 256), (130, 520),
+                 (1080, 136), (1080, 1920), (2160, 3840)):
+        assert lift.kernel_tile_windows(h, w, halo) == lift.tile_windows(h, w, halo)
+
+
+def test_lift_reciprocal_exhaustive_on_card(cuda):
+    """The forward kernels' multiply-high reciprocal against floor
+    division for every non-negative int32 numerator, at every step 1-64
+    and the larger steps the checks use."""
+    assert lift.reciprocal_mismatches(list(range(1, 65)) + [160, 1000], cuda) == 0
+
+
+def test_lift_fused_rejects_bad_quantizers(cuda):
+    vol = torch.zeros((1, 2, 4, 4), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="step"):
+        lift.forward_quant(vol, WaveletType.CDF53, 0, 0)
+    with pytest.raises(ValueError, match="dead zone"):
+        lift.forward_quant(vol, WaveletType.CDF53, 4, -1)
 
 
 @pytest.mark.parametrize("kind", ["noise", "skewed", "mixed"])
@@ -250,13 +287,14 @@ def test_dense_modes_on_card_match_cpu(cuda, kwargs):
             on_cpu.decode(cpu_chunk, exact=exact, as_numpy=True))
 
 
-def test_split_frame_lift_kernels_match_plain(cuda, monkeypatch):
+@pytest.mark.parametrize("shape", [(3, 4, 16, 256), (2, 4, 130, 520)])
+def test_split_frame_lift_kernels_match_plain(cuda, monkeypatch, shape):
     """The fused kernels' split-frame form (int16 stored between the W and
     H passes, as the TPU's split spatial path stores it at 4K), forced at
     a small shape by cutting the frame budget, on inputs whose spatial
-    intermediates leave int16."""
+    intermediates leave int16 (the second shape takes the kernel's fast
+    form, windows clamped into the frame)."""
     monkeypatch.setattr(lift, "_FRAME_BYTES", 1024)
-    shape = (3, 4, 16, 256)
     assert lift.split_frame(*shape[2:])
     rng = np.random.default_rng(23)
     vol = torch.as_tensor(rng.integers(-30000, 30000, size=shape, dtype=np.int16),

@@ -1,0 +1,182 @@
+"""The geometry and arithmetic the fused CUDA lift kernels (K1
+``forward_quant`` / K4 ``inverse_dequant``, ``csrc/lift.cu``) rest on,
+checked on the CPU where the kernels cannot run:
+
+* the halo claim: the spatial pass lifts each frame in windows around its
+  stored tiles (``lift.tile_windows`` with ``lift.spatial_halo`` rows of
+  halo), and lifting each window on its own and keeping its tile gives
+  the full-frame lift — for every wavelet, forward and both inverse
+  modes, with and without the split-frame int16 store between the axes,
+  on frames smaller than one tile, ragged ones and ones whose windows the
+  kernel clamps into the frame; the full-frame lift of the largest frame
+  is held to the JAX package's (``forward_1d_inter`` /
+  ``inverse_1d_inter``);
+* the per-channel reciprocal the forward temporal pass divides by
+  (``lift.reciprocal``), exhaustively against ``//``.
+
+``lift.tile_windows`` is a model of the kernel's tiles, not the kernel:
+on the card ``test_torch_gpu.py::test_lift_tile_windows_match_kernel``
+(and chip_smoke.py) hold it equal to the tiles the CUDA library launches
+(``lift.kernel_tile_windows``), and the kernels themselves against the
+plain versions."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from alice_codec_tpu.core import WaveletType as JW
+from alice_codec_tpu.ops import wavelet as jwavelet
+
+from alice_codec_tpu_torch.core import WaveletType
+from alice_codec_tpu_torch.ops.kernels import lift
+from alice_codec_tpu_torch.ops.wavelet import lift_axis, lift_steps
+
+# The suite runs several pytest workers on the CPU at once: keep these
+# small tensor ops on one thread so they do not compete with them.
+torch.set_num_threads(1)
+
+WAVELETS = [WaveletType.HAAR, WaveletType.CDF53, WaveletType.CDF97]
+#: None: forward (W then H); False / True: the compat / exact inverse (H
+#: then W)
+MODES = [None, False, True]
+#: (H, W) frames: smaller than one tile; ragged (W not a multiple of 8, so
+#: the windows are not clamped); exactly one window; several clamped
+#: windows in both axes
+FRAMES = [(10, 14), (70, 258), (64, 256), (130, 520)]
+
+
+def _frame(shape) -> np.ndarray:
+    """Random int16 values (the spatial pass's input in both directions)."""
+    rng = np.random.default_rng(sum(shape))
+    return rng.integers(-32768, 32768, size=shape, dtype=np.int16).astype(np.int32)
+
+
+def _spatial(x: torch.Tensor, wt, exact, split: bool) -> torch.Tensor:
+    """The fused kernels' spatial pass on a 2D int32 frame (port)."""
+    steps = lift_steps(wt, inverse=exact is not None, exact=bool(exact))
+    axes = (-1, -2) if exact is None else (-2, -1)
+    x = lift_axis(x, steps, axes[0])
+    if split:
+        x = lift._int16(x)
+    return lift_axis(x, steps, axes[1])
+
+
+def _spatial_jax(x: np.ndarray, wt, exact) -> dict:
+    """The JAX package's spatial pass on a 2D frame, without and with the
+    int16 store between the axes: {split: frame}."""
+    jwt = JW(int(wt))
+    if exact is None:
+        lift1 = jwavelet.forward_1d_inter
+        axes, kw = (-1, -2), {}
+    else:
+        lift1 = jwavelet.inverse_1d_inter
+        axes, kw = (-2, -1), {"exact": exact}
+    y = lift1(jnp.asarray(x), jwt, axis=axes[0], **kw)
+    return {split: np.asarray(lift1(y.astype(jnp.int16).astype(jnp.int32)
+                                    if split else y, jwt, axis=axes[1], **kw))
+            for split in (False, True)}
+
+
+def _tiled(x: torch.Tensor, wt, exact, split: bool, halo: int) -> torch.Tensor:
+    """Each window lifted on its own (its cut edges mirrored as frame
+    edges), its tile kept; every pixel must be stored exactly once."""
+    out = torch.zeros_like(x)
+    stored = torch.zeros(x.shape, dtype=torch.int32)
+    for (r0, r1), (c0, c1), (wr0, wr1), (wc0, wc1) in lift.tile_windows(
+            *x.shape, halo):
+        assert wr0 % 2 == 0 and wc0 % 2 == 0 and wr0 <= r0 and r1 <= wr1
+        assert wc0 <= c0 and c1 <= wc1
+        y = _spatial(x[wr0:wr1, wc0:wc1], wt, exact, split)
+        out[r0:r1, c0:c1] = y[r0 - wr0:r1 - wr0, c0 - wc0:c1 - wc0]
+        stored[r0:r1, c0:c1] += 1
+    assert bool((stored == 1).all())
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_frames():
+    """The JAX package's full-frame spatial lift of the largest frame in
+    every mode, computed once (tests/conftest.py clears JAX's caches every
+    few tests)."""
+    out = {}
+    for shape in FRAMES[-1:]:
+        for wt in WAVELETS:
+            for exact in MODES:
+                for split, y in _spatial_jax(_frame(shape), wt, exact).items():
+                    out[shape, wt, exact, split] = y
+    return out
+
+
+@pytest.mark.parametrize("wt", WAVELETS)
+def test_halo_is_the_number_of_steps(wt):
+    assert lift.spatial_halo(wt) == len(lift_steps(wt))
+    for exact in (False, True):
+        assert lift.spatial_halo(wt) == len(lift_steps(wt, inverse=True,
+                                                        exact=exact))
+    assert lift.spatial_halo(wt) <= lift._HALO_W
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("exact", MODES)
+@pytest.mark.parametrize("wt", WAVELETS)
+@pytest.mark.parametrize("shape", FRAMES)
+def test_tiles_reproduce_the_full_frame_lift(jax_frames, shape, wt, exact, split):
+    x = torch.from_numpy(_frame(shape))
+    full = _spatial(x, wt, exact, split)
+    if (shape, wt, exact, split) in jax_frames:
+        np.testing.assert_array_equal(full.numpy(),
+                                      jax_frames[shape, wt, exact, split])
+    got = _tiled(x, wt, exact, split, lift.spatial_halo(wt))
+    assert torch.equal(got, full)
+
+
+def test_a_smaller_halo_is_not_enough():
+    """CDF 9/7's four steps reach four rows: with a halo of two, tiles
+    below the first differ from the full-frame lift."""
+    x = torch.from_numpy(_frame((130, 520)))
+    for exact in MODES:
+        full = _spatial(x, WaveletType.CDF97, exact, False)
+        assert not torch.equal(_tiled(x, WaveletType.CDF97, exact, False, 2), full)
+
+
+def test_tile_windows_clamp_into_large_frames():
+    tiles = lift.tile_windows(1080, 1920, 2)
+    assert len(tiles) == 18 * 8
+    assert all(wr1 - wr0 == lift._WIN_H and wc1 - wc0 == lift._WIN_W
+               for _, _, (wr0, wr1), (wc0, wc1) in tiles)
+
+
+def test_reciprocal_matches_floor_division():
+    """Every step 1-64 (``core.quality_to_step``'s range), every
+    numerator 0..2^18, as the kernel computes it: ``umulhi(m, 2n) >> l``;
+    then steps beyond (the split-frame checks use 160) on numerators
+    up to 2^31 - 1."""
+    n = np.arange(0, (1 << 18) + 1, dtype=np.uint64)
+    for step in range(1, 65):
+        m, l = lift.reciprocal(step)
+        assert 1 << 31 <= m < 1 << 32
+        q = ((np.uint64(m) * (n << np.uint64(1))) >> np.uint64(32)) >> np.uint64(l)
+        np.testing.assert_array_equal(q, n // np.uint64(step))
+    rng = np.random.default_rng(5)
+    big = np.concatenate([rng.integers(0, 1 << 31, 1 << 16, dtype=np.int64),
+                          (1 << 31) - 1 - np.arange(4096)]).astype(np.uint64)
+    for step in (65, 160, 1000, (1 << 20) + 7, (1 << 31) - 1):
+        m, l = lift.reciprocal(step)
+        assert m < 1 << 32
+        q = ((np.uint64(m) * (big << np.uint64(1))) >> np.uint64(32)) >> np.uint64(l)
+        np.testing.assert_array_equal(q, big // np.uint64(step))
+
+
+def test_quant_params_per_channel():
+    qp = lift._quant_params(torch.tensor([1, 7, 64], dtype=torch.int32), 6, 3, "cpu")
+    assert qp.dtype == torch.int32 and qp.shape == (3, 4)
+    for row, step in zip(qp.tolist(), (1, 7, 64)):
+        m, l = lift.reciprocal(step)
+        assert row == [step, 6, m - (1 << 32) if m >= 1 << 31 else m, l]
+    assert lift._quant_params(9, 9, 2, "cpu").tolist() == (
+        lift._quant_params([9, 9], [9, 9], 2, "cpu").tolist())
+    with pytest.raises(ValueError, match="step"):
+        lift._quant_params(0, 0, 1, "cpu")
+    with pytest.raises(ValueError, match="dead zone"):
+        lift._quant_params(4, -1, 1, "cpu")
