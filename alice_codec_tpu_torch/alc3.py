@@ -211,8 +211,8 @@ def _entropy_decode(streams, counts, hists, *, padded, s_seg: int,
 
 def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
                          v_b: int, wire_active, wire_nc: int = 3, dense=()):
-    """Sparse phase 2: compact kernel → bitmap + value planes → word-rANS
-    encode kernel.
+    """Sparse phase 2: compact kernel → bitmap + value planes → one
+    word-rANS encode launch for all of them.
 
     ``symbols``: (npv, pp) uint8, the provided planes (wire planes
     ``wire_active`` of the ``wire_nc``: 3 channels, or the 6 byte planes
@@ -231,7 +231,16 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
     dev = symbols.device
     coded = tuple(i for i in range(npv) if krs[i] > 0)
     sp = tuple(c for c in coded if c not in dense)
-    values, bm_parts = {}, {}
+    nb, mb = _segment_geometry(pp // 8, s_seg, v_b)
+    # every segment of the chunk in one buffer, in wire order: the coded
+    # planes' bitmap segments (all zero, so elided, for a dense plane),
+    # then their value segments
+    sizes = [mb] * len(coded) + [krs[c] * NG for c in coded]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
+    parts = torch.split(buf, sizes)
+    bm_seg = dict(zip(coded, parts[: len(coded)]))
+    values = dict(zip(coded, parts[len(coded):]))
+    bm_parts = {}
     if sp:
         sym_sp, trows_sp = symbols, trows
         if len(sp) < npv:
@@ -240,12 +249,16 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
         bm, vals = compact(sym_sp, trows_sp, tuple(krs[c] for c in sp))
         row = 0
         for i, c in enumerate(sp):
-            values[c] = vals[row : row + krs[c]].reshape(-1)
+            values[c].copy_(vals[row : row + krs[c]].reshape(-1))
             bm_parts[c] = bm[i]
+            bm_seg[c][: pp // 8].copy_(bm[i])
+            bm_seg[c][pp // 8 :].zero_()
             row += krs[c]
     for c in dense:
-        values[c] = torch.nn.functional.pad(symbols[c], (0, krs[c] * NG - pp))
+        values[c][:pp].copy_(symbols[c])
+        values[c][pp:].zero_()
         bm_parts[c] = torch.full((pp // 8,), 255, dtype=torch.uint8, device=dev)
+        bm_seg[c].zero_()
     zero_bm = torch.zeros((pp // 8,), dtype=torch.uint8, device=dev)
     bitmaps = torch.stack([bm_parts.get(c, zero_bm) for c in range(npv)])
     bm_hists = _covered_hist(_histograms(bitmaps, HIST_STRIDE),
@@ -267,37 +280,16 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
         else:
             rows.append(zero_v_hist)
     hists = torch.stack(rows)
-
-    streams, counts = [], []
-    nb, mb = _segment_geometry(pp // 8, s_seg, v_b)
-    if sp:
-        bm_sp = (bitmaps if len(sp) == npv
-                 else bitmaps[torch.tensor(sp, device=dev)])
-        bmh = hists[torch.tensor([wire_active[c] for c in sp], device=dev)]
-        freqs, cums = freq_table_device(
-            _table_hists(bmh, pp // 8, s_seg=s_seg, v_seg=v_b))
-        if mb != pp // 8:
-            bm_sp = torch.nn.functional.pad(bm_sp, (0, mb - pp // 8))
-        streams_sp, counts_sp = encode_words(
-            bm_sp.reshape(len(sp) * nb, s_seg, NG), freqs, cums)
-    for c in coded:
-        if c in sp:
-            j = sp.index(c)
-            streams.append(streams_sp[j * nb : (j + 1) * nb])
-            counts.append(counts_sp[j * nb : (j + 1) * nb])
-        else:  # a dense plane's bitmap segments ship elided
-            streams.append(torch.zeros((nb, stream_rows(s_seg), NG),
-                                       dtype=torch.int32, device=dev))
-            counts.append(torch.zeros(nb, dtype=torch.int32, device=dev))
-    # one launch per value plane: planes differ in capacity and table
-    for c in coded:
-        w = wire_nc + wire_active[c]
-        vf, vc = freq_table_device(hists[w : w + 1])
-        s_v, c_v = encode_words(
-            values[c].reshape(krs[c] // s_seg, s_seg, NG), vf, vc)
-        streams.append(s_v)
-        counts.append(c_v)
-    return torch.cat(streams), torch.cat(counts), hists
+    # one table per segment group: each coded plane's bitmap (a dense
+    # plane's segments are elided and never read theirs), then its values
+    freqs, cums = freq_table_device(torch.cat([
+        _table_hists(hists[[wire_active[c] for c in coded]], pp // 8,
+                     s_seg=s_seg, v_seg=v_b),
+        hists[[wire_nc + wire_active[c] for c in coded]]]))
+    streams, counts = encode_words(
+        buf.view(-1, s_seg, NG), freqs, cums,
+        planes=[nb] * len(coded) + [krs[c] // s_seg for c in coded])
+    return streams, counts, hists
 
 
 def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
@@ -306,7 +298,8 @@ def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
     or 6 byte planes when deep).  ``kcaps``: per plane, its value
     capacity in symbols — 0 elides the plane (exact zeros), the full
     dense capacity marks a dense plane (its value symbols are the plane;
-    its bitmap is never read)."""
+    its bitmap is never read).  One word-rANS decode launch covers every
+    segment."""
     pp = _sparse_pp(p)
     dev = streams.device
     coded = tuple(c for c in range(nc) if kcaps[c] > 0)
@@ -316,33 +309,28 @@ def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
     dense_kcap = _segment_geometry(pp, s_seg)[1]
     dense = tuple(c for c in coded if kcaps[c] >= dense_kcap)
     sp = tuple(c for c in coded if c not in dense)
-    nb, _ = _segment_geometry(pp // 8, s_seg, v_b)
+    nb, mb = _segment_geometry(pp // 8, s_seg, v_b)
+    freqs, cums = freq_table_device(torch.cat([
+        _table_hists(hists[list(coded)], pp // 8, s_seg=s_seg, v_seg=v_b),
+        hists[[nc + c for c in coded]]]))
+    flat = decode_words(
+        streams, counts, freqs, cums, s_seg=s_seg,
+        planes=[nb] * na + [kcaps[c] // (s_seg * NG) for c in coded]
+    ).view(-1)
     planes = {}
-    if sp:
-        bmh = hists[torch.tensor(sp, device=dev)]
-        freqs, cums = freq_table_device(
-            _table_hists(bmh, pp // 8, s_seg=s_seg, v_seg=v_b))
-        # bitmap segments ride in coded order; take the sparse planes'
-        rows = torch.cat([torch.arange(coded.index(c) * nb,
-                                       (coded.index(c) + 1) * nb, device=dev)
-                          for c in sp])
-        bm = decode_words(streams[rows], counts[rows], freqs, cums,
-                          s_seg=s_seg).reshape(len(sp), -1)[:, : pp // 8]
     parts = []
-    row0 = na * nb
+    off = na * mb
     for c in coded:
-        kr = kcaps[c] // NG
-        nv = kr // s_seg
-        vf, vc = freq_table_device(hists[nc + c : nc + c + 1])
-        v = decode_words(streams[row0 : row0 + nv], counts[row0 : row0 + nv],
-                         vf, vc, s_seg=s_seg).reshape(kr, NG)
-        row0 += nv
+        v = flat[off : off + kcaps[c]]
+        off += kcaps[c]
         if c in dense:
-            planes[c] = v.reshape(-1)[:p]
+            planes[c] = v[:p]
         else:
-            parts.append(v)
+            parts.append(v.view(-1, NG))
     if sp:
-        sym_sp = expand(bm.contiguous(), torch.cat(parts),
+        bm = torch.stack([flat[i * mb : i * mb + pp // 8]
+                          for i, c in enumerate(coded) if c in sp])
+        sym_sp = expand(bm, torch.cat(parts),
                         tuple(kcaps[c] // NG for c in sp))
         for i, c in enumerate(sp):
             planes[c] = sym_sp[i, :p]

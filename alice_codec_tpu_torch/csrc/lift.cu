@@ -36,7 +36,9 @@
 //   * temporal_*_t64: T = 64 (the codec's chunk) in registers, two
 //     neighbouring columns a thread (4-byte int16 and 2-byte uint8
 //     accesses, coalesced across the warp); other T take the shared-memory
-//     column kernels temporal_quant / temporal_dequant.  The forward pass
+//     column kernels temporal_quant / temporal_dequant (whole columns where
+//     T x 128 ints fit, else windows of 64 frames with a halo, see
+//     axis_span).  The forward pass
 //     quantizes with a per-channel multiply-high reciprocal computed on the
 //     host (exact floor division for every numerator below 2^31) and
 //     zigzags; the inverse pass un-zigzags and dequantizes on the way in.
@@ -46,8 +48,11 @@
 // intermediate therefore WRAPS at the temporal -> spatial boundary, and,
 // on frames the TPU splits (split = 1), between the two spatial axes
 // (lift_kernels.py:144), as on the TPU.  The plain 3D lift (K7) stores
-// int32 everywhere (its o_ref is int32) and runs each pass in place after
-// the first, so it needs no scratch volume.  Arithmetic that can overflow
+// int32 everywhere (its o_ref is int32).  Each of its passes holds whole
+// lines of its axis in shared memory where they fit and runs in place
+// after the first; lines that do not fit (W > 58112, H > 3632, T > 454)
+// are lifted in windows with a halo, from one int32 volume into another,
+// so only those shapes take a scratch volume.  Arithmetic that can overflow
 // runs in unsigned int (two's-complement wrap, no undefined behaviour);
 // right shifts of negative values are arithmetic.
 
@@ -110,51 +115,111 @@ __device__ __forceinline__ void lift_one(int* a, int i, int n, int s,
   a[i * s] = sub ? wsub(a[i * s], d) : wadd(a[i * s], d);
 }
 
+// ---- windows along one axis -----------------------------------------------
+
+// Lifting is local: a step reads only its two neighbours, so after the n
+// steps of a filter a value depends on positions at most n away.  A line
+// too long for shared memory is therefore lifted in windows of `win`
+// positions: window k stores [r0, r1), a span of win - 2 halo positions,
+// and lifts [w0, w0 + win) around it as if its cut ends were the line's
+// ends (halo >= n keeps the wrong values those ends give out of the
+// stored span).  The windows are clamped into the line when `clamp`, so
+// only the line's own ends are left to clip.  With halo and win even,
+// every window starts on an even position and keeps the line's parity.
+struct Span {
+  int r0, r1, w0;
+};
+
+__host__ __device__ inline Span line_window(int k, int n, int win, int halo,
+                                            bool clamp) {
+  const int tile = win - 2 * halo;
+  Span s;
+  s.r0 = k * tile;
+  s.r1 = s.r0 + tile < n ? s.r0 + tile : n;
+  s.w0 = s.r0 - halo;
+  if (clamp) s.w0 = s.w0 < 0 ? 0 : (s.w0 > n - win ? n - win : s.w0);
+  return s;
+}
+
+// The K7 and temporal passes' windows of an axis of n positions: one
+// window [0, n) when n <= win (the host passes win = n where the whole
+// line fits shared memory), else clamped line windows.  Window k stores
+// [r0, r1) and lifts [lo, hi).
+__host__ __device__ inline int axis_windows(int n, int win, int halo) {
+  return n <= win ? 1 : (n + win - 2 * halo - 1) / (win - 2 * halo);
+}
+
+// WIN = false: the kernels' whole-line form (one window, n <= win),
+// compiled without the window arithmetic.
+template <bool WIN>
+__host__ __device__ __forceinline__ void axis_span(int k, int n, int win, int halo,
+                                          int* r0, int* r1, int* lo, int* hi) {
+  if (!WIN) {
+    *r0 = *lo = 0;
+    *r1 = *hi = n;
+    return;
+  }
+  const Span s = line_window(k, n, win, halo, true);
+  *r0 = s.r0;
+  *r1 = s.r1;
+  *lo = s.w0;
+  *hi = s.w0 + win;
+}
+
 // ---- K7 spatial passes ----------------------------------------------------
 
-// One block per row of length w; all steps along the row.
-// in may equal out: a block reads its whole row before it writes it.
-template <typename InT, typename OutT>
-__global__ void row_lift(const InT* in, OutT* out, int w, Steps st) {
+// One block per (row of length w, window of it); all steps along the row.
+// in may equal out when the row is one window: a block then reads its
+// whole row before it writes it.
+template <bool WIN>
+__global__ void row_lift(const int32_t* in, int32_t* out, int w, int win,
+                         int halo, Steps st) {
   extern __shared__ int line[];
-  size_t base = (size_t)blockIdx.x * w;
-  for (int i = threadIdx.x; i < w; i += blockDim.x) line[i] = (int)in[base + i];
+  int r0, r1, lo, hi;
+  axis_span<WIN>(blockIdx.y, w, win, halo, &r0, &r1, &lo, &hi);
+  const int n = hi - lo;
+  size_t base = (size_t)blockIdx.x * w + lo;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) line[i] = in[base + i];
   __syncthreads();
   for (int k = 0; k < st.n; ++k) {
     int p = st.predict[k];
-    for (int i = p + 2 * threadIdx.x; i < w; i += 2 * blockDim.x)
-      lift_one(line, i, w, 1, st.coeff[k], p, st.sub);
+    for (int i = p + 2 * threadIdx.x; i < n; i += 2 * blockDim.x)
+      lift_one(line, i, n, 1, st.coeff[k], p, st.sub);
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < w; i += blockDim.x)
-    out[base + i] = (OutT)line[i];
+  for (int i = r0 - lo + threadIdx.x; i < r1 - lo; i += blockDim.x)
+    out[base + i] = line[i];
 }
 
 constexpr int kStrip = 16;  // columns per col_lift block (blockDim 16 x 16)
 
-// One block per (plane, strip of kStrip columns); all steps along H.  in
-// may equal out: a block reads its whole strip before it writes it.
-template <typename InT, typename OutT>
-__global__ void col_lift(const InT* in, OutT* out, int h, int w, Steps st) {
-  extern __shared__ int strip[];  // [h][kStrip]
+// One block per (plane, strip of kStrip columns, window of rows); all
+// steps along H.  in may equal out when the column is one window.
+template <bool WIN>
+__global__ void col_lift(const int32_t* in, int32_t* out, int h, int w, int win,
+                         int halo, Steps st) {
+  extern __shared__ int strip[];  // [rows of the window][kStrip]
   int tx = threadIdx.x, ty = threadIdx.y;
   int col = blockIdx.x * kStrip + tx;
-  size_t plane = (size_t)blockIdx.y * h * w;
+  int r0, r1, lo, hi;
+  axis_span<WIN>(blockIdx.z, h, win, halo, &r0, &r1, &lo, &hi);
+  const int n = hi - lo;
+  size_t plane = (size_t)blockIdx.y * h * w + (size_t)lo * w;
   bool live = col < w;
   if (live)
-    for (int r = ty; r < h; r += blockDim.y)
-      strip[r * kStrip + tx] = (int)in[plane + (size_t)r * w + col];
+    for (int r = ty; r < n; r += blockDim.y)
+      strip[r * kStrip + tx] = in[plane + (size_t)r * w + col];
   __syncthreads();
   for (int k = 0; k < st.n; ++k) {
     int p = st.predict[k];
     if (live)
-      for (int i = p + 2 * ty; i < h; i += 2 * blockDim.y)
-        lift_one(strip + tx, i, h, kStrip, st.coeff[k], p, st.sub);
+      for (int i = p + 2 * ty; i < n; i += 2 * blockDim.y)
+        lift_one(strip + tx, i, n, kStrip, st.coeff[k], p, st.sub);
     __syncthreads();
   }
   if (live)
-    for (int r = ty; r < h; r += blockDim.y)
-      out[plane + (size_t)r * w + col] = (OutT)strip[r * kStrip + tx];
+    for (int r = r0 - lo + ty; r < r1 - lo; r += blockDim.y)
+      out[plane + (size_t)r * w + col] = strip[r * kStrip + tx];
 }
 
 // ---- filters known at compile time (K1 / K4) --------------------------------
@@ -234,19 +299,9 @@ struct TileWindow {
 
 __host__ __device__ inline TileWindow tile_window(int bx, int by, int h, int w,
                                                   int halo, bool fast) {
-  const int tile_h = kWinH - 2 * halo;
-  TileWindow t;
-  t.r0 = by * tile_h;
-  t.c0 = bx * kTileW;
-  t.r1 = t.r0 + tile_h < h ? t.r0 + tile_h : h;
-  t.c1 = t.c0 + kTileW < w ? t.c0 + kTileW : w;
-  t.wr0 = t.r0 - halo;
-  t.wc0 = t.c0 - kHaloW;
-  if (fast) {
-    t.wr0 = t.wr0 < 0 ? 0 : (t.wr0 > h - kWinH ? h - kWinH : t.wr0);
-    t.wc0 = t.wc0 < 0 ? 0 : (t.wc0 > w - kWinW ? w - kWinW : t.wc0);
-  }
-  return t;
+  const Span r = line_window(by, h, kWinH, halo, fast);
+  const Span c = line_window(bx, w, kWinW, kHaloW, fast);
+  return TileWindow{r.r0, r.r1, c.r0, c.r1, r.w0, c.w0};
 }
 
 // All steps along W over the thread's rows.  gc: frame column of v[.][0].
@@ -524,54 +579,71 @@ __device__ __forceinline__ void lift_column(int* col, int t, const Steps& st) {
   }
 }
 
-// grid (ceil(hw / 128), c): forward T lift, dead-zone quantize, zigzag.
+// The column kernels below: grid (ceil(hw / 128), c, windows of T).  A
+// block holds `win` frames of 128 columns (win = t where t frames fit
+// shared memory, else kTWin frames with `halo` frames of halo, see
+// axis_span) and stores the frames [r0, r1) of its window.
+
+// Forward T lift, dead-zone quantize, zigzag.
+template <bool WIN>
 __global__ void temporal_quant(const int16_t* __restrict__ in,
                                uint8_t* __restrict__ out,
                                const QuantParams* __restrict__ qp, int t,
-                               int hw, Steps st) {
+                               int hw, int win, int halo, Steps st) {
   extern __shared__ int buf[];
   int pos = blockIdx.x * kTemporalThreads + threadIdx.x;
   if (pos >= hw) return;
-  size_t base = (size_t)blockIdx.y * t * hw + pos;
+  int r0, r1, lo, hi;
+  axis_span<WIN>(blockIdx.z, t, win, halo, &r0, &r1, &lo, &hi);
+  size_t base = ((size_t)blockIdx.y * t + lo) * hw + pos;
   int* col = buf + threadIdx.x;
-  for (int i = 0; i < t; ++i) col[i * kTemporalThreads] = in[base + (size_t)i * hw];
-  lift_column(col, t, st);
+  for (int i = 0; i < hi - lo; ++i)
+    col[i * kTemporalThreads] = in[base + (size_t)i * hw];
+  lift_column(col, hi - lo, st);
   const QuantParams p = qp[blockIdx.y];
-  for (int i = 0; i < t; ++i)
+  for (int i = r0 - lo; i < r1 - lo; ++i)
     out[base + (size_t)i * hw] = (uint8_t)(quant_symbol(col[i * kTemporalThreads], p) & 0xFFu);
 }
 
-// grid (ceil(hw / 128), c): un-zigzag, dequantize, inverse T lift -> i16.
+// Un-zigzag, dequantize, inverse T lift -> i16.
+template <bool WIN>
 __global__ void temporal_dequant(const uint8_t* __restrict__ in,
                                  int16_t* __restrict__ out,
-                                 const int32_t* __restrict__ step,
-                                 int t, int hw, Steps st) {
+                                 const int32_t* __restrict__ step, int t,
+                                 int hw, int win, int halo, Steps st) {
   extern __shared__ int buf[];
   int pos = blockIdx.x * kTemporalThreads + threadIdx.x;
   if (pos >= hw) return;
-  size_t base = (size_t)blockIdx.y * t * hw + pos;
+  int r0, r1, lo, hi;
+  axis_span<WIN>(blockIdx.z, t, win, halo, &r0, &r1, &lo, &hi);
+  size_t base = ((size_t)blockIdx.y * t + lo) * hw + pos;
   int* col = buf + threadIdx.x;
   int q_step = step[blockIdx.y];
-  for (int i = 0; i < t; ++i)
+  for (int i = 0; i < hi - lo; ++i)
     col[i * kTemporalThreads] = dequant(in[base + (size_t)i * hw], q_step);
-  lift_column(col, t, st);
-  for (int i = 0; i < t; ++i)
+  lift_column(col, hi - lo, st);
+  for (int i = r0 - lo; i < r1 - lo; ++i)
     out[base + (size_t)i * hw] = (int16_t)col[i * kTemporalThreads];
 }
 
-// grid (ceil(hw / 128), c): plain T lift, int32 -> int32 (forward or
-// inverse, by the steps).  in may equal out: each thread reads its whole
-// column before it writes it, and no two threads share a column.
+// Plain T lift, int32 -> int32 (forward or inverse, by the steps).  in
+// may equal out when the column is one window: each thread then reads its
+// whole column before it writes it, and no two threads share a column.
+template <bool WIN>
 __global__ void temporal_lift(const int32_t* in, int32_t* out, int t, int hw,
-                              Steps st) {
+                              int win, int halo, Steps st) {
   extern __shared__ int buf[];
   int pos = blockIdx.x * kTemporalThreads + threadIdx.x;
   if (pos >= hw) return;
-  size_t base = (size_t)blockIdx.y * t * hw + pos;
+  int r0, r1, lo, hi;
+  axis_span<WIN>(blockIdx.z, t, win, halo, &r0, &r1, &lo, &hi);
+  size_t base = ((size_t)blockIdx.y * t + lo) * hw + pos;
   int* col = buf + threadIdx.x;
-  for (int i = 0; i < t; ++i) col[i * kTemporalThreads] = in[base + (size_t)i * hw];
-  lift_column(col, t, st);
-  for (int i = 0; i < t; ++i) out[base + (size_t)i * hw] = col[i * kTemporalThreads];
+  for (int i = 0; i < hi - lo; ++i)
+    col[i * kTemporalThreads] = in[base + (size_t)i * hw];
+  lift_column(col, hi - lo, st);
+  for (int i = r0 - lo; i < r1 - lo; ++i)
+    out[base + (size_t)i * hw] = col[i * kTemporalThreads];
 }
 
 // grid-stride over n in [0, 2^31) for each of `count` quantizers: counts
@@ -612,6 +684,38 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 unsigned cdiv(size_t a, size_t b) { return (unsigned)((a + b - 1) / b); }
 
+// Shared memory a block may use, and the windows of the passes that hold
+// a whole line of an axis in it (see axis_span): rows of 8192 columns
+// (32 KB), columns of 256 rows (16 KB a 16-column strip), temporal columns
+// of 64 frames (32 KB for 128 columns).
+constexpr size_t kSmemLimit = 232448;
+constexpr int kRowWin = 8192;
+constexpr int kColWin = 256;
+constexpr int kTWin = 64;
+
+// A pass's window along an axis of n positions of `bytes` of shared
+// memory each: the whole axis where it fits, else `win`.
+int pass_win(int n, size_t bytes, int win) {
+  return (size_t)n * bytes <= kSmemLimit ? n : win;
+}
+
+// The launch of a temporal column kernel (whole: its whole-column form,
+// windowed: its windowed one) with leading arguments `args`: windows of T
+// in grid.z.
+template <typename K, typename... A>
+cudaError_t temporal_launch(K whole, K windowed, int c, int t, size_t hw,
+                            int halo, const Steps& st, cudaStream_t s,
+                            A... args) {
+  const int win = pass_win(t, kTemporalThreads * sizeof(int), kTWin);
+  const K kernel = t > win ? windowed : whole;
+  const size_t smem = (size_t)win * kTemporalThreads * sizeof(int);
+  cudaError_t e;
+  if ((e = allow_smem(kernel, smem))) return e;
+  kernel<<<dim3(cdiv(hw, kTemporalThreads), c, axis_windows(t, win, halo)),
+           kTemporalThreads, smem, s>>>(args..., t, (int)hw, win, halo, st);
+  return cudaGetLastError();
+}
+
 // spatial_tiles' grid: one block per tile of each of `planes` frames.
 dim3 tile_grid(int h, int w, int halo, int planes) {
   return dim3(cdiv(w, kTileW), cdiv(h, kWinH - 2 * halo), (unsigned)planes);
@@ -648,10 +752,9 @@ cudaError_t forward_quant_run(const int16_t* vol, int16_t* tmp16, uint8_t* out,
     temporal_quant_t64<F><<<dim3(cdiv(hw / 2, kPairThreads), c), kPairThreads, 0, s>>>(
         tmp16, out, qp, (int)hw);
   } else {
-    const size_t t_smem = (size_t)t * kTemporalThreads * sizeof(int);
-    if ((e = allow_smem(temporal_quant, t_smem))) return e;
-    temporal_quant<<<dim3(cdiv(hw, kTemporalThreads), c), kTemporalThreads, t_smem, s>>>(
-        tmp16, out, qp, t, (int)hw, st);
+    return temporal_launch(temporal_quant<false>, temporal_quant<true>, c, t,
+                           hw, halo, st, s,
+                           (const int16_t*)tmp16, out, qp);
   }
   return cudaGetLastError();
 }
@@ -663,17 +766,15 @@ cudaError_t inverse_dequant_run(const uint8_t* sym, int16_t* tmp16, int16_t* out
                                 int halo, int split, const Steps& st,
                                 cudaStream_t s) {
   const size_t hw = (size_t)h * w;
-  cudaError_t e;
+  cudaError_t e = cudaSuccess;
   if (t == kT64 && aligned(sym, 2)) {
     temporal_dequant_t64<F><<<dim3(cdiv(hw / 2, kPairThreads), c), kPairThreads, 0, s>>>(
         sym, tmp16, step, (int)hw);
   } else {
-    const size_t t_smem = (size_t)t * kTemporalThreads * sizeof(int);
-    if ((e = allow_smem(temporal_dequant, t_smem))) return e;
-    temporal_dequant<<<dim3(cdiv(hw, kTemporalThreads), c), kTemporalThreads, t_smem, s>>>(
-        sym, tmp16, step, t, (int)hw, st);
+    e = temporal_launch(temporal_dequant<false>, temporal_dequant<true>, c, t,
+                        hw, halo, st, s, sym, tmp16, step);
   }
-  if ((e = cudaGetLastError())) return e;
+  if (e || (e = cudaGetLastError())) return e;
   const bool fast = fast_frame(h, w) && aligned(tmp16, 16) && aligned(out, 16);
   const dim3 grid = tile_grid(h, w, halo, c * t);
   if (fast)
@@ -786,58 +887,120 @@ extern "C" int alc_tile_windows(int h, int w, int halo, int* out, int cap) {
   return k;
 }
 
+// The three K7 passes along W, H and T.  Each holds a whole line of its
+// axis in shared memory where it fits, else windows of it (axis_span, with
+// a halo of the filter's step count rounded up to even).  A pass of one
+// window may lift its buffer in place; a windowed one reads one buffer
+// and writes the other, since its windows overlap.
+struct Lift3d {
+  Steps st;
+  int c, t, h, w, halo, row_win, col_win, t_win;
+  cudaStream_t s;
+
+  Lift3d(const Steps& st_, int c_, int t_, int h_, int w_, cudaStream_t s_)
+      : st(st_), c(c_), t(t_), h(h_), w(w_), halo((st_.n + 1) & ~1), s(s_) {
+    row_win = pass_win(w, sizeof(int), kRowWin);
+    col_win = pass_win(h, kStrip * sizeof(int), kColWin);
+    t_win = pass_win(t, kTemporalThreads * sizeof(int), kTWin);
+  }
+  // Whether the forward (T last) or the inverse (W last) lift needs the
+  // second buffer: the first pass reads the input, so only a windowed
+  // later pass does.
+  bool needs_tmp(bool forward) const {
+    return h > col_win || (forward ? t > t_win : w > row_win);
+  }
+  cudaError_t rows(const int32_t* in, int32_t* out) const {
+    const size_t smem = (size_t)row_win * sizeof(int);
+    const size_t lines = (size_t)c * t * h;  // grid.x, at most 2^31 - 1
+    if (lines > 0x7fffffffu) return cudaErrorInvalidConfiguration;
+    const auto kernel = w > row_win ? row_lift<true> : row_lift<false>;
+    cudaError_t e;
+    if ((e = allow_smem(kernel, smem))) return e;
+    kernel<<<dim3((unsigned)lines, axis_windows(w, row_win, halo)),
+             256, smem, s>>>(in, out, w, row_win, halo, st);
+    return cudaGetLastError();
+  }
+  cudaError_t cols(const int32_t* in, int32_t* out) const {
+    const size_t smem = (size_t)col_win * kStrip * sizeof(int);
+    const auto kernel = h > col_win ? col_lift<true> : col_lift<false>;
+    cudaError_t e;
+    if ((e = allow_smem(kernel, smem))) return e;
+    kernel<<<dim3(cdiv(w, kStrip), c * t, axis_windows(h, col_win, halo)),
+             dim3(kStrip, 16), smem, s>>>(in, out, h, w, col_win, halo, st);
+    return cudaGetLastError();
+  }
+  cudaError_t frames(const int32_t* in, int32_t* out) const {
+    return temporal_launch(temporal_lift<false>, temporal_lift<true>, c, t,
+                           (size_t)h * w, halo, st, s, in, out);
+  }
+};
+
 // Plain forward: i32 volume (c, t, h, w) -> i32 coefficients, W then H then
-// T.  The row pass writes out; the column and temporal passes lift out in
-// place.  coeff / predict: host arrays of the n forward steps.
-extern "C" int alc_forward_3d(const void* vol, void* out, int c, int t, int h,
-                              int w, int n, const int* coeff,
+// T.  A grid beyond the card's limits (C·T above 65535, C·T·H rows or the
+// windows of an axis beyond their grid dimension) is reported as
+// cudaErrorInvalidConfiguration.  The row pass writes out or tmp, so that the column and temporal
+// passes, each in place or to the other buffer, end in out.  tmp: an
+// i32 volume like out, needed only where H or T is windowed (else may be
+// null; cudaErrorInvalidValue if it is needed and null).  coeff /
+// predict: host arrays of the n forward steps.
+extern "C" int alc_forward_3d(const void* vol, void* out, void* tmp, int c,
+                              int t, int h, int w, int n, const int* coeff,
                               const int* predict, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  Steps st = make_steps(n, coeff, predict, 0);
-  size_t row_smem = (size_t)w * sizeof(int);
-  size_t col_smem = (size_t)h * kStrip * sizeof(int);
-  size_t t_smem = (size_t)t * kTemporalThreads * sizeof(int);
-  cudaError_t e;
-  if ((e = allow_smem(row_lift<int32_t, int32_t>, row_smem))) return e;
-  if ((e = allow_smem(col_lift<int32_t, int32_t>, col_smem))) return e;
-  if ((e = allow_smem(temporal_lift, t_smem))) return e;
+  const Lift3d k(make_steps(n, coeff, predict, 0), c, t, h, w,
+                 (cudaStream_t)stream);
+  const bool col_in = h <= k.col_win, t_in = t <= k.t_win;
   int32_t* o = (int32_t*)out;
-  row_lift<int32_t, int32_t><<<(unsigned)((size_t)c * t * h), 256, row_smem, s>>>(
-      (const int32_t*)vol, o, w, st);
-  if ((e = cudaGetLastError())) return e;
-  col_lift<int32_t, int32_t><<<dim3(cdiv(w, kStrip), c * t), dim3(kStrip, 16),
-                               col_smem, s>>>(o, o, h, w, st);
-  if ((e = cudaGetLastError())) return e;
-  temporal_lift<<<dim3(cdiv((size_t)h * w, kTemporalThreads), c),
-                  kTemporalThreads, t_smem, s>>>(o, o, t, h * w, st);
-  return cudaGetLastError();
+  int32_t* x = (int32_t*)tmp;
+  if (k.needs_tmp(true) && x == nullptr) return cudaErrorInvalidValue;
+  int32_t* a = (!col_in + !t_in) % 2 ? x : o;  // the row pass's output
+  int32_t* b = col_in ? a : (a == o ? x : o);  // the column pass's
+  cudaError_t e;
+  if ((e = k.rows((const int32_t*)vol, a))) return e;
+  if ((e = k.cols(a, b))) return e;
+  return k.frames(b, o);
 }
 
 // Plain inverse: i32 coefficients -> i32 volume, T then H then W (the
-// temporal pass writes out, the others lift it in place).  coeff / predict:
-// the n inverse steps in application order (negated coefficients for the
-// compat inverse); sub = 1 for exact undo.
-extern "C" int alc_inverse_3d(const void* coeffs, void* out, int c, int t,
-                              int h, int w, int n, const int* coeff,
+// temporal pass writes out or tmp, so that the column and row passes end
+// in out).  tmp: as for alc_forward_3d, needed only where H or W is
+// windowed.  coeff / predict: the n inverse steps in application order
+// (negated coefficients for the compat inverse); sub = 1 for exact undo.
+extern "C" int alc_inverse_3d(const void* coeffs, void* out, void* tmp, int c,
+                              int t, int h, int w, int n, const int* coeff,
                               const int* predict, int sub, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  Steps st = make_steps(n, coeff, predict, sub);
-  size_t row_smem = (size_t)w * sizeof(int);
-  size_t col_smem = (size_t)h * kStrip * sizeof(int);
-  size_t t_smem = (size_t)t * kTemporalThreads * sizeof(int);
-  cudaError_t e;
-  if ((e = allow_smem(temporal_lift, t_smem))) return e;
-  if ((e = allow_smem(col_lift<int32_t, int32_t>, col_smem))) return e;
-  if ((e = allow_smem(row_lift<int32_t, int32_t>, row_smem))) return e;
+  const Lift3d k(make_steps(n, coeff, predict, sub), c, t, h, w,
+                 (cudaStream_t)stream);
+  const bool col_in = h <= k.col_win, row_in = w <= k.row_win;
   int32_t* o = (int32_t*)out;
-  temporal_lift<<<dim3(cdiv((size_t)h * w, kTemporalThreads), c),
-                  kTemporalThreads, t_smem, s>>>((const int32_t*)coeffs, o, t,
-                                                 h * w, st);
-  if ((e = cudaGetLastError())) return e;
-  col_lift<int32_t, int32_t><<<dim3(cdiv(w, kStrip), c * t), dim3(kStrip, 16),
-                               col_smem, s>>>(o, o, h, w, st);
-  if ((e = cudaGetLastError())) return e;
-  row_lift<int32_t, int32_t><<<(unsigned)((size_t)c * t * h), 256, row_smem, s>>>(
-      o, o, w, st);
-  return cudaGetLastError();
+  int32_t* x = (int32_t*)tmp;
+  if (k.needs_tmp(false) && x == nullptr) return cudaErrorInvalidValue;
+  int32_t* a = (!col_in + !row_in) % 2 ? x : o;  // the temporal pass's output
+  int32_t* b = col_in ? a : (a == o ? x : o);    // the column pass's
+  cudaError_t e;
+  if ((e = k.frames((const int32_t*)coeffs, a))) return e;
+  if ((e = k.cols(a, b))) return e;
+  return k.rows(b, o);
+}
+
+// Whether alc_forward_3d (forward = 1) or alc_inverse_3d needs its tmp
+// volume for frames of (t, h, w).
+extern "C" int alc_lift3d_scratch(int t, int h, int w, int forward) {
+  return Lift3d(Steps{}, 1, t, h, w, nullptr).needs_tmp(forward);
+}
+
+// The windows the K7 and temporal passes lift an axis of n positions in,
+// given the pass's window win (n itself where the whole line fits shared
+// memory) and `halo`: 4 ints a window, the stored [r0, r1) and the
+// lifted [lo, hi), as axis_span gives them.  Writes at most `cap` windows
+// to out (host memory); returns the number of windows.
+extern "C" int alc_axis_windows(int n, int win, int halo, int* out, int cap) {
+  const int count = axis_windows(n, win, halo);
+  for (int k = 0; k < count && k < cap; ++k) {
+    int* r = out + 4 * k;
+    if (n > win)
+      axis_span<true>(k, n, win, halo, r, r + 1, r + 2, r + 3);
+    else
+      axis_span<false>(k, n, win, halo, r, r + 1, r + 2, r + 3);
+  }
+  return count;
 }

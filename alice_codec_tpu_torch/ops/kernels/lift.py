@@ -42,20 +42,15 @@ from ..wavelet import forward_3d_inter, inverse_3d_inter, lift_axis, lift_steps
 __all__ = ["forward_quant", "inverse_dequant", "forward_quant_plain",
            "inverse_dequant_plain", "forward_3d", "inverse_3d",
            "forward_3d_plain", "inverse_3d_plain", "reciprocal",
-           "spatial_halo", "split_frame", "tile_windows",
-           "kernel_tile_windows"]
+           "spatial_halo", "split_frame", "line_windows", "tile_windows",
+           "axis_windows", "kernel_tile_windows", "kernel_axis_windows"]
 
 #: frame budget of the TPU's one-block spatial kernel (lift_kernels.py
 #: _FRAME_BYTES); larger int16 frames take its split spatial path
 _FRAME_BYTES = 9 * 1024 * 1024
-#: shared memory a block may use on Hopper (bytes)
-_SMEM_LIMIT = 232448
-_STRIP = 16           # columns per column-lift block (csrc/lift.cu kStrip)
-_T_THREADS = 128      # threads per temporal block (kTemporalThreads)
 # the fused kernels' spatial tiles (csrc/lift.cu kWinH, kWinW, kHaloW, kSeg)
 _WIN_H, _WIN_W, _HALO_W, _SEG = 64, 256, 8, 8
 _TILE_W = _WIN_W - 2 * _HALO_W
-_T_REG = 64           # T the temporal kernels hold in registers (kT64)
 
 
 def _per_channel(v, c: int, device) -> torch.Tensor:
@@ -90,6 +85,20 @@ def spatial_halo(wavelet) -> int:
     return len(lift_steps(wavelet))
 
 
+def line_windows(n: int, win: int, halo: int, clamp: bool):
+    """The windows of a line of ``n`` positions lifted in windows of
+    ``win`` (csrc/lift.cu ``line_window``): ``(r0, r1, w0)`` per window —
+    it stores ``[r0, r1)``, ``win - 2 halo`` positions, and lifts
+    ``[w0, w0 + win)`` around them (clamped into the line when ``clamp``;
+    the caller clips it to ``[0, n)``)."""
+    tile = win - 2 * halo
+    out = []
+    for r0 in range(0, n, tile):
+        w0 = min(max(r0 - halo, 0), n - win) if clamp else r0 - halo
+        out.append((r0, min(r0 + tile, n), w0))
+    return out
+
+
 def tile_windows(h: int, w: int, halo: int):
     """The tiles of the fused kernels' spatial pass on an (h, w) frame:
     ``((r0, r1), (c0, c1), (wr0, wr1), (wc0, wc1))`` per tile — the rows
@@ -101,16 +110,24 @@ def tile_windows(h: int, w: int, halo: int):
     kernel's own tiles (:func:`kernel_tile_windows`) are held equal to
     these on the card."""
     fast = h >= _WIN_H and w >= _WIN_W and w % _SEG == 0
-    tile_h = _WIN_H - 2 * halo
-    tiles = []
-    for r0 in range(0, h, tile_h):
-        wr0 = min(max(r0 - halo, 0), h - _WIN_H) if fast else r0 - halo
-        for c0 in range(0, w, _TILE_W):
-            wc0 = min(max(c0 - _HALO_W, 0), w - _WIN_W) if fast else c0 - _HALO_W
-            tiles.append(((r0, min(r0 + tile_h, h)), (c0, min(c0 + _TILE_W, w)),
-                          (max(wr0, 0), min(wr0 + _WIN_H, h)),
-                          (max(wc0, 0), min(wc0 + _WIN_W, w))))
-    return tiles
+    return [((r0, r1), (c0, c1), (max(wr0, 0), min(wr0 + _WIN_H, h)),
+             (max(wc0, 0), min(wc0 + _WIN_W, w)))
+            for r0, r1, wr0 in line_windows(h, _WIN_H, halo, fast)
+            for c0, c1, wc0 in line_windows(w, _WIN_W, _HALO_W, fast)]
+
+
+def axis_windows(n: int, win: int, halo: int):
+    """The windows of the K7 and temporal passes along an axis of ``n``
+    positions lifted in windows of ``win`` (csrc/lift.cu ``axis_span``;
+    the library picks ``win``, ``n`` itself where the line fits shared
+    memory): ``((r0, r1), (lo, hi))`` per window — one window ``[0, n)``
+    when ``n <= win``, else :func:`line_windows` clamped into the axis.
+    A model for the CPU tests, held equal to :func:`kernel_axis_windows`
+    on the card."""
+    if n <= win:
+        return [((0, n), (0, n))]
+    return [((r0, r1), (w0, w0 + win))
+            for r0, r1, w0 in line_windows(n, win, halo, True)]
 
 
 def reciprocal(step: int) -> tuple[int, int]:
@@ -189,10 +206,14 @@ def _lib() -> ctypes.CDLL:
         lib.alc_reciprocal_mismatches.restype = i
         lib.alc_tile_windows.argtypes = [i, i, i, p, i]
         lib.alc_tile_windows.restype = i
-        lib.alc_forward_3d.argtypes = [p, p, i, i, i, i, i, p, p, p]
+        lib.alc_forward_3d.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
         lib.alc_forward_3d.restype = i
-        lib.alc_inverse_3d.argtypes = [p, p, i, i, i, i, i, p, p, i, p]
+        lib.alc_inverse_3d.argtypes = [p, p, p, i, i, i, i, i, p, p, i, p]
         lib.alc_inverse_3d.restype = i
+        lib.alc_lift3d_scratch.argtypes = [i, i, i, i]
+        lib.alc_lift3d_scratch.restype = i
+        lib.alc_axis_windows.argtypes = [i, i, i, p, i]
+        lib.alc_axis_windows.restype = i
         lib._alc_typed = True
     return lib
 
@@ -204,22 +225,25 @@ def _step_arrays(steps):
     return n, coeff, predict
 
 
-def _check_cuda_shape(x: torch.Tensor, *, fused: bool) -> None:
-    """Raise for a shape the kernels cannot take.  The fused kernels (K1 /
-    K4) tile frames of any size; their temporal pass holds T = 64 in
-    registers and other T in shared memory.  The plain 3D lift (K7) holds
-    a whole row, a column strip and a temporal column in shared memory."""
+def _check_cuda_shape(x: torch.Tensor) -> None:
+    """Raise for a shape the kernels cannot take: more than 65535 frames
+    in all (C·T, a grid dimension of every kernel) or a frame of 2^31
+    pixels or more.  Lines too long for shared memory are lifted in
+    windows, so no axis has a length limit of its own; a grid the card
+    cannot launch for a rarer reason (more than 2^31 - 1 rows, or 65535
+    windows of an axis) is reported by the library's launch."""
     c, t, h, w = x.shape
-    need = {"temporal": 0 if fused and t == _T_REG else t * _T_THREADS * 4}
-    if not fused:
-        need.update(row=w * 4, column=h * _STRIP * 4)
-    for what, b in need.items():
-        if b > _SMEM_LIMIT:
-            raise ValueError(f"{what} pass needs {b} B of shared memory for "
-                             f"shape {tuple(x.shape)} (limit {_SMEM_LIMIT})")
-    if c * t > 65535 or c > 65535 or (not fused and c * t * h > 2**31 - 1):
-        raise ValueError(f"C·T = {c * t} (C·T·H = {c * t * h}) exceeds "
-                         f"the grid limit")
+    if c * t > 65535 or h * w > 2**31 - 1:
+        raise ValueError(f"shape {tuple(x.shape)} exceeds the grid limit "
+                         f"(C·T = {c * t}, H·W = {h * w})")
+
+
+def _k7_scratch(shape, *, forward: bool) -> bool:
+    """Whether K7 needs an int32 scratch volume for ``shape``, as the
+    library decides it: a pass lifted in windows reads one buffer and
+    writes another.  Needs the built library, not a card."""
+    _, t, h, w = shape
+    return bool(_lib().alc_lift3d_scratch(t, h, w, int(forward)))
 
 
 def _quant_params(step, dead_zone, c: int, device) -> torch.Tensor:
@@ -264,9 +288,23 @@ def kernel_tile_windows(h: int, w: int, halo: int):
             for k in range(n)]
 
 
+def kernel_axis_windows(n: int, win: int, halo: int):
+    """The windows the library's K7 and temporal passes lift an axis of
+    ``n`` positions in, in the form of :func:`axis_windows`.  Needs the
+    built library, not a card."""
+    cap = len(axis_windows(n, win, halo))
+    buf = (ctypes.c_int * (4 * cap))()
+    k = _lib().alc_axis_windows(n, win, halo, ctypes.addressof(buf), cap)
+    if k != cap:
+        raise ValueError(f"alc_axis_windows({n}, {win}, {halo}) gave {k} "
+                         f"windows, expected {cap}")
+    return [(tuple(buf[4 * i:4 * i + 2]), tuple(buf[4 * i + 2:4 * i + 4]))
+            for i in range(k)]
+
+
 def _forward_quant_cuda(volume, wavelet, step, dead_zone):
     _check_volume(volume, torch.int16, "forward_quant")
-    _check_cuda_shape(volume, fused=True)
+    _check_cuda_shape(volume)
     vol = volume.contiguous()
     c, t, h, w = vol.shape
     qp = _quant_params(step, dead_zone, c, vol.device)
@@ -285,7 +323,7 @@ def _forward_quant_cuda(volume, wavelet, step, dead_zone):
 
 def _inverse_dequant_cuda(symbols, wavelet, step, exact):
     _check_volume(symbols, torch.uint8, "inverse_dequant")
-    _check_cuda_shape(symbols, fused=True)
+    _check_cuda_shape(symbols)
     sym = symbols.contiguous()
     c, t, h, w = sym.shape
     s = _per_channel(step, c, sym.device)
@@ -305,13 +343,15 @@ def _inverse_dequant_cuda(symbols, wavelet, step, exact):
 
 def _forward_3d_cuda(volume, wavelet):
     _check_volume(volume, torch.int32, "forward_3d")
-    _check_cuda_shape(volume, fused=False)
+    _check_cuda_shape(volume)
     vol = volume.contiguous()
     c, t, h, w = vol.shape
     out = torch.empty_like(vol)
+    tmp = torch.empty_like(vol) if _k7_scratch(vol.shape, forward=True) else None
     n, coeff, predict = _step_arrays(lift_steps(wavelet))
     _build.check(_lib().alc_forward_3d(
-        vol.data_ptr(), out.data_ptr(), c, t, h, w, n,
+        vol.data_ptr(), out.data_ptr(), tmp.data_ptr() if tmp is not None else None,
+        c, t, h, w, n,
         ctypes.addressof(coeff), ctypes.addressof(predict),
         torch.cuda.current_stream(vol.device).cuda_stream),
         "forward_3d")
@@ -321,14 +361,16 @@ def _forward_3d_cuda(volume, wavelet):
 
 def _inverse_3d_cuda(coeffs, wavelet, exact):
     _check_volume(coeffs, torch.int32, "inverse_3d")
-    _check_cuda_shape(coeffs, fused=False)
+    _check_cuda_shape(coeffs)
     vol = coeffs.contiguous()
     c, t, h, w = vol.shape
     out = torch.empty_like(vol)
+    tmp = torch.empty_like(vol) if _k7_scratch(vol.shape, forward=False) else None
     n, coeff, predict = _step_arrays(
         lift_steps(wavelet, inverse=True, exact=exact))
     _build.check(_lib().alc_inverse_3d(
-        vol.data_ptr(), out.data_ptr(), c, t, h, w, n,
+        vol.data_ptr(), out.data_ptr(), tmp.data_ptr() if tmp is not None else None,
+        c, t, h, w, n,
         ctypes.addressof(coeff), ctypes.addressof(predict), int(exact),
         torch.cuda.current_stream(vol.device).cuda_stream),
         "inverse_3d")

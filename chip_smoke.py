@@ -20,7 +20,13 @@ Phases (any failure raises and exits non-zero before the last line):
    densities 0-100 % with capacities that differ per plane, and a hostile
    bitmap; the quantizer's reciprocal over every non-negative int32; the
    fused lifts' tiles against ``lift.tile_windows``, the model the CPU
-   tests hold);
+   tests hold; lines too long for shared memory, lifted in windows: a
+   3640-row and a 58368-column frame in the plain 3D lift and 456- and
+   1000-frame chunks in all the lifts; the word-rANS kernels over planes of different segment
+   counts and tables in one launch, with noise and corrupt counts, and
+   the encoder's reciprocal division at every frequency), and the
+   word-rANS kernels again on the north star's planes as its one launch
+   each way gets them;
    with per-kernel timings and the fused lifts' device time split by
    kernel; then a 4K check (16×2160×3840, where the JAX package splits
    its spatial pass into single-axis band kernels): the fused and the
@@ -32,7 +38,8 @@ Phases (any failure raises and exits non-zero before the last line):
    sparse codec's capacity caches included;
 4. the paths at full width, each over one 64×1080×1920 chunk kept on
    the card, with the launch counts of every kernel set to 0 just before
-   the path's encode → decode and read just after:
+   the path's encode → decode and read just after (each ALC3 path must
+   launch ``encode_words`` and ``decode_words`` exactly once):
    ``Alc3Codec(90, "cdf53")`` (dense), the north star
    ``Alc3Codec(90, "cdf53", sparse=True)``,
    ``Alc3Codec(50, "cdf53", sparse=True)``, ``Alc3Codec(100, "haar")``
@@ -103,29 +110,45 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn):
+def device_profile(fn, need=(), tries=4):
     """One call of ``fn`` under torch.profiler: ``(wall ms, [(kernel name,
-    device ms, count)] sorted by device time)``."""
+    device ms, count)] sorted by device time)``.
+
+    The profiler can leave the first kernel of a session out of its record
+    (seen on the H100: the first of a wrapper call's kernels), so a short
+    spin kernel, left out of the rows, opens each session.  A profile that
+    lacks a kernel named by a substring of ``need`` is taken again, up to
+    ``tries`` times in all, and the last one must hold them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    return wall_ms, rows
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and "spin_kernel" not in e.key]
+        rows.sort(key=lambda r: -r[1])
+        missing = [n for n in need if not any(n in key for key, _, _ in rows)]
+        if not missing:
+            return wall_ms, rows
+    check(False, f"{tries} profiles of one call lack a kernel of {missing}: "
+                 f"{[key[:60] for key, _, _ in rows]}")
 
 
-def kernel_split(fn) -> dict:
+def kernel_split(fn, need=()) -> dict:
     """Device ms of one call of ``fn`` by kernel (torch.profiler; kernels
-    under 0.01 ms left out), names without their argument lists."""
-    _, rows = device_profile(fn)
+    under 0.01 ms left out), names without their argument lists; ``need``
+    as in :func:`device_profile`."""
+    _, rows = device_profile(fn, need)
     return {key.replace("(anonymous namespace)::", "").removeprefix(
         "void ").split("(")[0]: ms for key, ms, _ in rows if ms > 0.01}
 
@@ -223,7 +246,8 @@ def main() -> int:
         BatchFrameDecoder, BatchFrameEncoder, EncodedChunkStream)
     from alice_codec_tpu_torch.parallel.batch import _lane_sym_count
     from alice_codec_tpu_torch.utils.golden import golden_rgb
-    from alice_codec_tpu_torch.ops.kernels import launch_counts, lift, reset_launches
+    from alice_codec_tpu_torch.ops.kernels import (
+        launch_counts, lift, rans3, reset_launches)
     from alice_codec_tpu_torch.ops.kernels.lift import (
         forward_3d, forward_3d_plain, forward_quant, forward_quant_plain,
         inverse_3d, inverse_3d_plain, inverse_dequant, inverse_dequant_plain)
@@ -377,6 +401,76 @@ def main() -> int:
                   f"inverse_3d exact does not invert forward_3d {w_small.name}")
     print("small shapes: forward_3d / inverse_3d bit-exact (3 wavelets, both "
           "inverse modes, int32 values to ±2^20)")
+    # lines too long for shared memory, lifted in windows with a halo: K7
+    # on a frame taller than its column strip holds (3632 rows) and on one
+    # wider than its row holds (58112 columns; the inverse then writes
+    # through its scratch volume), and K1 / K4 / K7 on chunks longer than
+    # their temporal columns hold (454 frames), each against its plain
+    # version
+    long_shapes = ((1, 4, 3640, 32), (1, 2, 8, 58368), (2, 456, 8, 32),
+                   (2, 1000, 8, 32))
+    for shape in long_shapes:
+        big = torch.as_tensor(
+            rng.integers(-(1 << 20), 1 << 20, shape, dtype=np.int32), device=dev)
+        v16 = torch.as_tensor(rng.integers(-30000, 30000, shape, dtype=np.int16),
+                              device=dev)
+        sym_r = torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8),
+                                device=dev)
+        for w_small in WaveletType:
+            a = forward_3d(big, w_small)
+            check(max_abs_err(a, forward_3d_plain(big, w_small)) == 0,
+                  f"forward_3d {shape} {w_small.name}")
+            a16 = forward_quant(v16, w_small, 160, 160)
+            check(max_abs_err(a16, forward_quant_plain(v16, w_small, 160, 160)) == 0,
+                  f"forward_quant {shape} {w_small.name}")
+            for exact in (False, True):
+                check(max_abs_err(inverse_3d(a, w_small, exact=exact),
+                                  inverse_3d_plain(a, w_small, exact=exact)) == 0,
+                      f"inverse_3d {shape} {w_small.name} exact={exact}")
+                for sym, s2 in ((a16, 160), (sym_r, 7)):
+                    check(max_abs_err(
+                        inverse_dequant(sym, w_small, s2, exact=exact),
+                        inverse_dequant_plain(sym, w_small, s2, exact=exact)) == 0,
+                          f"inverse_dequant {shape} {w_small.name} exact={exact}")
+        del big, v16, sym_r, a, a16
+    print(f"long lines: forward_3d / inverse_3d / forward_quant / "
+          f"inverse_dequant bit-exact at {list(long_shapes)} (3 wavelets, both "
+          f"inverse modes; H, W and T lifted in windows)")
+    # the word-rANS kernels at small shapes: one launch over planes of
+    # different segment counts and tables (noise, where every lane emits
+    # and refills in one step; elided segments between coded ones), then
+    # counts corrupted past the stream; and the encoder's reciprocal
+    s_small, planes_s = 40, (3, 2, 4)
+    parts = [rng.integers(0, 256, (3, s_small, NG)),
+             np.where(rng.random((2, s_small, NG)) < 0.6, 0,
+                      rng.integers(0, 30, (2, s_small, NG))),
+             np.where(rng.random((4, s_small, NG)) < 0.9, 0,
+                      rng.integers(0, 9, (4, s_small, NG)))]
+    parts[2][1] = 0
+    seg_s = torch.as_tensor(np.concatenate(parts).astype(np.uint8), device=dev)
+    f_s, c_s = freq_table_device(torch.stack([
+        torch.bincount(torch.as_tensor(q.reshape(-1)).long(), minlength=256)
+        for q in parts]).to(dev))
+    st_s, cn_s = encode_words(seg_s, f_s, c_s, planes=planes_s)
+    want = encode_words_plain(seg_s, f_s, c_s, planes=planes_s)
+    check(max_abs_err(st_s, want[0]) == 0 and max_abs_err(cn_s, want[1]) == 0,
+          "encode_words differs from its plain version on folded planes")
+    bad = cn_s.clone()
+    bad[0], bad[3], bad[7] = st_s.shape[1] * NG + 300, 2**31 - 1, -7
+    for cn_x in (cn_s, bad):
+        d_s = decode_words(st_s, cn_x, f_s, c_s, s_seg=s_small, planes=planes_s)
+        check(max_abs_err(d_s, decode_words_plain(
+            st_s, cn_x, f_s, c_s, s_seg=s_small, planes=planes_s)) == 0,
+              "decode_words differs from its plain version on folded planes")
+    check(bool(torch.equal(decode_words(st_s, cn_s, f_s, c_s, s_seg=s_small,
+                                        planes=planes_s), seg_s)),
+          "decode_words does not invert encode_words on folded planes")
+    rcp_bad = rans3.rcp_mismatches(dev)
+    check(rcp_bad == 0, f"the encoder's reciprocal divides wrongly {rcp_bad} times")
+    print(f"small shapes: encode_words / decode_words bit-exact over planes "
+          f"{planes_s} of {s_small} steps in one launch (noise, elided "
+          f"segments, corrupt counts); the encoder's reciprocal exact at every "
+          f"frequency 1-2048 on both sides of each multiple below 2^32")
 
     # K1 / K4 at full width: every wavelet, both inverse modes, bit-exact,
     # each timed; the main path's (CDF 5/3) numbers go to the kernels line,
@@ -413,12 +507,9 @@ def main() -> int:
         for name, fn in (
                 ("forward_quant", lambda: forward_quant(chans, w_full, step, step)),
                 ("inverse_dequant", lambda: inverse_dequant(sym_k, w_full, steps3))):
-            k14[w_full][name]["kernel_split"] = split = kernel_split(fn)
-            # the profiler can miss kernels: the split must hold both passes
-            passes = ("spatial_tiles", "temporal_" + name.split("_")[1])
-            check(all(any(k.startswith(p) for k in split) for p in passes),
-                  f"{name} {w_full.name}: the profile of one call lacks a "
-                  f"kernel of {passes}: {split}")
+            # the split must hold both passes
+            k14[w_full][name]["kernel_split"] = split = kernel_split(
+                fn, need=("spatial_tiles", "temporal_" + name.split("_")[1]))
             print(f"{name} {w_full.name}: {k14[w_full][name]['ms']:.3f} ms per "
                   f"call (bytes bound {k14[w_full][name]['bound_ms']:.3f} ms); "
                   f"one call by kernel: "
@@ -517,6 +608,59 @@ def main() -> int:
           f"serial chain {s_seg} steps per segment")
     del chans, sym_k, symbols, segs, st_k, cn_k, d_k
     torch.cuda.empty_cache()
+    # K2 / K3 on the north star's planes, as its one launch each way gets
+    # them (every bitmap and value segment of the chunk, a table a plane):
+    # the path's calls recorded, then replayed against the plain versions
+    calls = {}
+
+    def recording(name, fn):
+        def call(*args, **kw):
+            calls[name] = (args, kw)
+            return fn(*args, **kw)
+        return call
+
+    saved = alc3.encode_words, alc3.decode_words
+    alc3.encode_words = recording("encode_words", encode_words)
+    alc3.decode_words = recording("decode_words", decode_words)
+    try:
+        ns = Alc3Codec(QUALITY, "cdf53", sparse=True)
+        ns.decode(ns.encode(rgb))
+        del ns
+    finally:
+        alc3.encode_words, alc3.decode_words = saved
+    (ns_sym, ns_f, ns_c), ns_kw = calls["encode_words"]
+    (ns_st, ns_cn, _, _), ns_dkw = calls["decode_words"]
+    got = encode_words(ns_sym, ns_f, ns_c, **ns_kw)
+    want = encode_words_plain(ns_sym, ns_f, ns_c, **ns_kw)
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
+              max_abs_err(got[0], ns_st), max_abs_err(got[1], ns_cn))
+    check(err == 0, f"encode_words differs from its plain version on the north "
+                    f"star's planes by {err}")
+    del got, want
+    d_k = decode_words(ns_st, ns_cn, ns_f, ns_c, **ns_dkw)
+    err3 = max(max_abs_err(d_k, decode_words_plain(ns_st, ns_cn, ns_f, ns_c,
+                                                   **ns_dkw)),
+               max_abs_err(d_k, ns_sym))
+    check(err3 == 0, f"decode_words differs from its plain version on the north "
+                     f"star's planes by {err3}")
+    ns_words = int(ns_cn.to(torch.int64).sum().item())
+    stats["encode_words"].update(
+        planes_north_star=list(ns_kw["planes"]),
+        ms_north_star=time_ms(lambda: encode_words(ns_sym, ns_f, ns_c, **ns_kw), 5),
+        bound_ms_north_star=bound_ms(ns_sym.numel() + ns_st.numel() * 4
+                                     + ns_cn.numel() * 4))
+    stats["decode_words"].update(
+        ms_north_star=time_ms(
+            lambda: decode_words(ns_st, ns_cn, ns_f, ns_c, **ns_dkw), 5),
+        bound_ms_north_star=bound_ms(ns_words * 4 + ns_cn.numel() * 4
+                                     + d_k.numel()))
+    print(f"rANS on the north star's planes: {ns_sym.shape[0]} segments in one "
+          f"launch each way (segments per table {list(ns_kw['planes'])}), "
+          f"bit-exact; encode_words {stats['encode_words']['ms_north_star']:.3f} "
+          f"ms, decode_words {stats['decode_words']['ms_north_star']:.3f} ms "
+          f"[{card}]")
+    del calls, ns_sym, ns_st, ns_cn, d_k
+    torch.cuda.empty_cache()
 
     # K5 / K6 at small shapes: densities 0-100 % with capacities that
     # differ per plane, then a hostile bitmap (popcount past its capacity)
@@ -586,7 +730,7 @@ def main() -> int:
     for name, fn in (("compact", lambda: compact(sym50, trows50, krs50)),
                      ("expand", lambda: expand(bm_k, vals_k, krs50))):
         fn()
-        _, rows = device_profile(fn)
+        _, rows = device_profile(fn, need=(f"::{name}(",))
         kernel = sum(ms for key, ms, _ in rows if f"::{name}(" in key)
         stats[name]["kernel_ms"] = kernel
         print(f"{name}: device time of one wrapper call {sum(r[1] for r in rows):.3f} "
@@ -643,10 +787,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     # K7b's time: the row and column kernels inside one forward_3d call
     forward_3d(ch32, wt)
-    _, rows = device_profile(lambda: forward_3d(ch32, wt))
-    spatial_ms = sum(ms for key, ms, _ in rows
-                     if "row_lift<" in key or "col_lift<" in key)
-    check(spatial_ms > 0, "no row_lift / col_lift time in the 4K profile")
+    _, rows = device_profile(lambda: forward_3d(ch32, wt),
+                             need=("row_lift<", "col_lift<"))
+    row_ms = sum(ms for key, ms, _ in rows if "row_lift<" in key)
+    col_ms = sum(ms for key, ms, _ in rows if "col_lift<" in key)
+    spatial_ms = row_ms + col_ms
     steps_f = wavelet.lift_steps(wt)
     k7b_plain = time_ms(lambda: wavelet.lift_axis(
         wavelet.lift_axis(ch32, steps_f, -1), steps_f, -2), 2)
@@ -671,7 +816,8 @@ def main() -> int:
                                  plain_ms=k7b_plain, bound_ms=k7b_bound)
     print(f"4K {T4K}x{H4K}x{W4K}: forward_quant / inverse_dequant / "
           f"forward_3d / inverse_3d bit-exact; row_lift + col_lift "
-          f"{spatial_ms:.3f} ms in one forward_3d (plain W+H lift "
+          f"{spatial_ms:.3f} ms ({row_ms:.3f} + {col_ms:.3f}) in one "
+          f"forward_3d (plain W+H lift "
           f"{k7b_plain:.1f} ms); dense q=90 PSNR "
           f"{10 * np.log10(255.0 ** 2 / mse4):.4f} dB, deep q=100 lossless; "
           f"{k7b_launches} K7 launches (row_lift + col_lift), "
@@ -922,6 +1068,9 @@ def main() -> int:
             need += ["compact", "expand"]
         for k in need:
             check(launches[k] > 0, f"kernel {k} was not launched on {name}")
+        check(launches["encode_words"] == launches["decode_words"] == 1,
+              f"{name}: expected one encode_words and one decode_words launch "
+              f"a roundtrip, got {launches}")
 
         s_seg = chunk.s_seg
         if fused:
@@ -1192,7 +1341,8 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": None,
         })
         for extra in ("kernel_ms", "plain_streams", "ms_by_wavelet",
-                      "kernel_split"):
+                      "kernel_split", "planes_north_star", "ms_north_star",
+                      "bound_ms_north_star"):
             if extra in s:
                 kernels[-1][extra] = s[extra]
     print("kernels: " + json.dumps(

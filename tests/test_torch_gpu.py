@@ -130,6 +130,56 @@ def test_rans_kernels_match_plain(cuda, kind):
     assert _equal(cpu_s, streams.cpu()) and _equal(cpu_c, counts.cpu())
 
 
+def test_rans_kernels_fold_planes_match_plain(cuda):
+    """One launch over planes of different segment counts under their own
+    tables, as the sparse wire codes them: a noise plane (all 128 lanes
+    emit and refill in one step), a skewed one with elided segments
+    between coded ones, a one-symbol one; then counts corrupted past the
+    stream (decode reads zeros there), all held to the plain versions."""
+    s_seg, planes = 40, (3, 2, 4, 1)
+    rng = np.random.default_rng(8)
+    parts = [rng.integers(0, 256, (3, s_seg, NG)),
+             np.where(rng.random((2, s_seg, NG)) < 0.6, 0,
+                      rng.integers(0, 30, (2, s_seg, NG))),
+             np.where(rng.random((4, s_seg, NG)) < 0.9, 0,
+                      rng.integers(0, 9, (4, s_seg, NG))),
+             np.full((1, s_seg, NG), 7)]
+    parts[2][1] = parts[2][3] = 0
+    sym = np.concatenate(parts).astype(np.uint8)
+    hists = torch.stack([torch.bincount(torch.as_tensor(p.reshape(-1)).long(),
+                                        minlength=256) for p in parts])
+    freqs, cums = (t.to(cuda) for t in freq_table_device(hists))
+    seg = torch.as_tensor(sym, device=cuda)
+    n = rans3.encode_words.launches, rans3.decode_words.launches
+    streams, counts = rans3.encode_words(seg, freqs, cums, planes=planes)
+    want_s, want_c = rans3.encode_words_plain(seg, freqs, cums, planes=planes)
+    assert _equal(counts, want_c) and _equal(streams, want_s)
+    assert (counts == 0).sum() == 2
+    out = rans3.decode_words(streams, counts, freqs, cums, s_seg=s_seg,
+                             planes=planes)
+    torch.cuda.synchronize()
+    assert (rans3.encode_words.launches, rans3.decode_words.launches) == (
+        n[0] + 1, n[1] + 1)
+    assert _equal(out, seg)
+    assert _equal(out, rans3.decode_words_plain(streams, counts, freqs, cums,
+                                                s_seg=s_seg, planes=planes))
+    bad = counts.clone()
+    bad[0] = streams.shape[1] * NG + 300
+    bad[4] = 2**31 - 1
+    bad[5] = -7
+    assert _equal(rans3.decode_words(streams, bad, freqs, cums, s_seg=s_seg,
+                                     planes=planes),
+                  rans3.decode_words_plain(streams, bad, freqs, cums,
+                                           s_seg=s_seg, planes=planes))
+
+
+def test_rans_reciprocal_exact_on_card(cuda):
+    """The encode kernel's multiply-high division against hardware
+    division at every frequency 1-2048, on both sides of every multiple
+    below 2^32 and on a random sample."""
+    assert rans3.rcp_mismatches(cuda) == 0
+
+
 def test_codec_on_card_matches_golden_and_cpu(cuda):
     man = json.loads((GOLDEN / "manifest.json").read_text())
     data = (GOLDEN / "dense.alc").read_bytes()
@@ -237,12 +287,85 @@ def test_lift3d_kernels_match_plain(cuda, wt, shape):
 
 
 def test_lift3d_rejects_shapes_it_cannot_take(cuda):
+    """Only the grid limits are left (lines too long for shared memory
+    are lifted in windows): C·T beyond 65535 raises, a tall frame runs."""
     tall = torch.zeros((1, 2, 3634, 2), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        lift.forward_3d(tall, WaveletType.CDF53)
+    assert _equal(lift.forward_3d(tall, WaveletType.CDF53), tall)
     many = torch.zeros((32768, 2, 2, 2), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="grid"):
         lift.inverse_3d(many, WaveletType.CDF53)
+
+
+@pytest.mark.parametrize("wt", list(WaveletType))
+@pytest.mark.parametrize("shape, scratch", [
+    ((1, 4, 3640, 32), (True, True)),     # taller than K7's column strip
+    ((1, 2, 8, 58368), (False, True))])   # wider than its row (58112)
+def test_lift3d_tall_and_wide_frames_match_plain(cuda, wt, shape, scratch):
+    """K7 on frames whose columns (3632 rows) or rows (58112 columns) do
+    not fit shared memory: that pass in windows with a halo, through the
+    scratch volume (forward, inverse) where it is not the first pass."""
+    assert (lift._k7_scratch(shape, forward=True),
+            lift._k7_scratch(shape, forward=False)) == scratch
+    rng = np.random.default_rng(int(wt) + shape[2])
+    vol = torch.as_tensor(
+        rng.integers(-(1 << 20), 1 << 20, size=shape, dtype=np.int32), device=cuda)
+    fwd = lift.forward_3d(vol, wt)
+    assert _equal(fwd, lift.forward_3d_plain(vol, wt))
+    for exact in (False, True):
+        for src in (fwd, vol):
+            assert _equal(lift.inverse_3d(src, wt, exact=exact),
+                          lift.inverse_3d_plain(src, wt, exact=exact))
+    assert _equal(lift.inverse_3d(fwd, wt, exact=True), vol)
+
+
+@pytest.mark.parametrize("wt", list(WaveletType))
+def test_lift_axis_windows_match_kernel(cuda, wt):
+    """The window geometry tests/test_torch_lift_tiles.py holds on the
+    CPU (lift.axis_windows) is the one the CUDA library launches with."""
+    halo = lift.spatial_halo(wt)
+    for n, win in ((6, 16), (16, 16), (18, 16), (58, 16), (3640, 256),
+                   (456, 64), (1000, 64), (58368, 8192), (3632, 3632)):
+        assert lift.kernel_axis_windows(n, win, halo) == lift.axis_windows(n, win, halo)
+
+
+@pytest.mark.parametrize("wt", list(WaveletType))
+@pytest.mark.parametrize("t", [456, 1000])
+def test_lift_long_chunks_match_plain(cuda, t, wt):
+    """K1 / K4 and K7 on chunks longer than their temporal columns hold
+    (454 frames): the temporal pass in windows of frames with a halo."""
+    shape = (2, t, 8, 32)
+    rng = np.random.default_rng(t + int(wt))
+    vol = torch.as_tensor(rng.integers(-30000, 30000, size=shape, dtype=np.int16),
+                          device=cuda)
+    step = torch.as_tensor([7, 160], dtype=torch.int32, device=cuda)
+    sym = lift.forward_quant(vol, wt, step, step)
+    assert _equal(sym, lift.forward_quant_plain(vol, wt, step, step))
+    rand = torch.as_tensor(rng.integers(0, 256, size=shape, dtype=np.uint8),
+                           device=cuda)
+    for exact in (False, True):
+        for s, st in ((sym, step), (rand, 160)):
+            assert _equal(lift.inverse_dequant(s, wt, st, exact=exact),
+                          lift.inverse_dequant_plain(s, wt, st, exact=exact))
+    big = torch.as_tensor(
+        rng.integers(-(1 << 20), 1 << 20, size=shape, dtype=np.int32), device=cuda)
+    fwd = lift.forward_3d(big, wt)
+    assert _equal(fwd, lift.forward_3d_plain(big, wt))
+    for exact in (False, True):
+        assert _equal(lift.inverse_3d(fwd, wt, exact=exact),
+                      lift.inverse_3d_plain(fwd, wt, exact=exact))
+
+
+def test_long_chunk_codec_on_card_matches_cpu(cuda):
+    """A 456-frame chunk (fused kernels with windowed temporal passes):
+    the container the card writes is the CPU's, and it decodes alike."""
+    from chip_smoke import golden_input
+
+    rgb = golden_input("chunk", 5, (456, 64, 64))
+    on_card, on_cpu = Alc3Codec(90), Alc3Codec(90, device="cpu")
+    card_chunk, cpu_chunk = on_card.encode(rgb), on_cpu.encode(rgb)
+    assert Alc3Codec.to_bytes(card_chunk) == Alc3Codec.to_bytes(cpu_chunk)
+    np.testing.assert_array_equal(on_card.decode(card_chunk, as_numpy=True),
+                                  on_cpu.decode(cpu_chunk, as_numpy=True))
 
 
 def test_mode_goldens_on_card(cuda):

@@ -12,7 +12,11 @@ checked on the CPU where the kernels cannot run:
   is held to the JAX package's (``forward_1d_inter`` /
   ``inverse_1d_inter``);
 * the per-channel reciprocal the forward temporal pass divides by
-  (``lift.reciprocal``), exhaustively against ``//``.
+  (``lift.reciprocal``), exhaustively against ``//``;
+* the windows along one axis (``lift.axis_windows``) that the plain 3D
+  lift (K7) and the temporal passes lift lines too long for shared memory
+  in (tall frames, long chunks): each window lifted on its own gives the
+  full lift, and the shape guard takes every shape the JAX package tiles.
 
 ``lift.tile_windows`` is a model of the kernel's tiles, not the kernel:
 on the card ``test_torch_gpu.py::test_lift_tile_windows_match_kernel``
@@ -27,6 +31,7 @@ import torch
 
 from alice_codec_tpu.core import WaveletType as JW
 from alice_codec_tpu.ops import wavelet as jwavelet
+from alice_codec_tpu.ops.pallas import lift_kernels as jlift
 
 from alice_codec_tpu_torch.core import WaveletType
 from alice_codec_tpu_torch.ops.kernels import lift
@@ -180,3 +185,89 @@ def test_quant_params_per_channel():
         lift._quant_params(0, 0, 1, "cpu")
     with pytest.raises(ValueError, match="dead zone"):
         lift._quant_params(4, -1, 1, "cpu")
+
+
+@pytest.mark.parametrize("exact", MODES)
+@pytest.mark.parametrize("wt", WAVELETS)
+@pytest.mark.parametrize("n", [6, 16, 18, 40, 58])
+def test_axis_windows_reproduce_the_full_lift(n, wt, exact):
+    """Windows of 16 along an axis of n (one window where n <= 16),
+    each lifted on its own with its cut ends mirrored, keep the full
+    lift in their stored spans; every position is stored once."""
+    rng = np.random.default_rng(n + int(wt))
+    x = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, (n, 6),
+                                      dtype=np.int64).astype(np.int32))
+    steps = lift_steps(wt, inverse=exact is not None, exact=bool(exact))
+    halo = lift.spatial_halo(wt)
+    full = lift_axis(x, steps, 0)
+    out = torch.zeros_like(x)
+    stored = np.zeros(n, np.int32)
+    wins = lift.axis_windows(n, 16, halo)
+    assert len(wins) == (1 if n <= 16 else -(-n // (16 - 2 * halo)))
+    for (r0, r1), (lo, hi) in wins:
+        assert lo % 2 == 0 and 0 <= lo <= r0 and r1 <= hi <= n
+        assert hi - lo == min(n, 16)
+        out[r0:r1] = lift_axis(x[lo:hi], steps, 0)[r0 - lo:r1 - lo]
+        stored[r0:r1] += 1
+    assert (stored == 1).all()
+    assert torch.equal(out, full)
+
+
+def test_tile_windows_are_line_windows():
+    """The fused kernels' tiles are the line windows of each axis."""
+    for h, w in ((10, 14), (130, 520), (1080, 1920)):
+        fast = h >= lift._WIN_H and w >= lift._WIN_W and w % lift._SEG == 0
+        rows = lift.line_windows(h, lift._WIN_H, 2, fast)
+        cols = lift.line_windows(w, lift._WIN_W, lift._HALO_W, fast)
+        assert [t[:2] for t in lift.tile_windows(h, w, 2)] == [
+            ((r0, r1), (c0, c1)) for r0, r1, _ in rows for c0, c1, _ in cols]
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif(not torch.cuda.is_available(),
+                    reason="asks the CUDA library, which is built on the card")
+def test_pass_windows_start_where_a_line_outgrows_shared_memory():
+    """K7's column strip holds 3632 rows, its row 58112 columns and the
+    temporal columns 454 frames whole; longer lines take windows, and K7
+    a scratch volume where a windowed pass is not its first (the library
+    decides)."""
+    for shape, fwd, inv in (((3, 64, 1080, 1920), False, False),
+                            ((1, 4, 3632, 32), False, False),
+                            ((1, 4, 3634, 32), True, True),
+                            ((3, 16, 4320, 7680), True, True),
+                            ((1, 2, 8, 58112), False, False),
+                            ((1, 2, 8, 58368), False, True),
+                            ((3, 454, 64, 64), False, False),
+                            ((3, 456, 64, 64), True, False)):
+        assert lift._k7_scratch(shape, forward=True) == fwd, shape
+        assert lift._k7_scratch(shape, forward=False) == inv, shape
+
+
+@pytest.mark.parametrize("shape, dtype", [
+    ((3, 16, 4320, 7680), torch.int32),   # an 8K chunk's K7 volume
+    ((1, 4, 3640, 32), torch.int32),
+    ((1, 2, 8, 58368), torch.int32),      # a frame wider than K7's row
+    ((3, 456, 64, 64), torch.int16),      # a 456-frame chunk, K1
+    ((3, 456, 64, 64), torch.uint8),      # and K4
+    ((3, 456, 64, 64), torch.int32),
+    ((3, 1000, 16, 32), torch.int16)])
+def test_cuda_shape_guard_takes_what_jax_takes(shape, dtype):
+    """Shapes the JAX package's kernels take (``lift3d_ok``) pass the
+    port's guard; meta tensors, so nothing is allocated."""
+    itemsize = 4 if dtype == torch.int32 else 2
+    assert jlift.lift3d_ok(shape, itemsize)
+    lift._check_cuda_shape(torch.empty(shape, dtype=dtype, device="meta"))
+
+
+def test_cuda_shape_guard_raises_at_the_grid_limit():
+    for shape in ((32768, 2, 2, 2), (1, 65536, 2, 2)):
+        x = torch.empty(shape, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="grid"):
+            lift._check_cuda_shape(x)
+
+
+def test_cuda_shape_guard_raises_for_frames_of_2_31_pixels():
+    """The kernels index a frame with int32: H·W must stay below 2^31."""
+    lift._check_cuda_shape(torch.empty((1, 1, 32768, 65535), device="meta"))
+    with pytest.raises(ValueError, match="H·W"):
+        lift._check_cuda_shape(torch.empty((1, 1, 32768, 65536), device="meta"))

@@ -1,7 +1,8 @@
 """The port's word-rANS kernels' plain versions against the JAX
 package's NumPy spec (``alice_codec_tpu/ops/rans_word.py``), word for
 word: streams, counts and decoded symbols, with elided all-zero segments,
-several tables and worst-case noise."""
+several tables (split evenly, or planes of different segment counts in
+one call, as the sparse wire codes them) and worst-case noise."""
 
 import numpy as np
 import pytest
@@ -54,24 +55,31 @@ def _spec_encode(planes, tables, s_seg):
             np.concatenate(counts))
 
 
-def _run(planes, s_seg=S_SEG):
+def _run(planes, s_seg=S_SEG, *, folded=False):
+    """Encode and decode ``planes`` in one call each, held to the spec
+    plane by plane; ``folded``: name each table's segment count
+    (``planes=``) instead of the even split."""
     tables = [_table(p) for p in planes]
     freqs = torch.from_numpy(np.stack([t[0] for t in tables]))
     cums = torch.from_numpy(np.stack([t[1] for t in tables]))
     sym = torch.from_numpy(np.concatenate(planes)).reshape(-1, s_seg, NG)
+    segs = [p.size // (s_seg * NG) for p in planes] if folded else None
     before = rans3.encode_words.launches, rans3.decode_words.launches
-    streams, counts = rans3.encode_words(sym, freqs, cums)
+    streams, counts = rans3.encode_words(sym, freqs, cums, planes=segs)
     want_streams, want_counts = _spec_encode(planes, tables, s_seg)
     np.testing.assert_array_equal(counts.numpy(), want_counts)
     np.testing.assert_array_equal(streams.numpy(), want_streams)
-    out = rans3.decode_words(streams, counts, freqs, cums, s_seg=s_seg)
+    out = rans3.decode_words(streams, counts, freqs, cums, s_seg=s_seg,
+                             planes=segs)
     assert out.dtype == torch.uint8
     np.testing.assert_array_equal(out.numpy(), sym.numpy())
     # the spec's host decoder reads the same words, and validates them
+    row0 = 0
     for i, p in enumerate(planes):
         n_seg = p.size // (s_seg * NG)
-        cnt = want_counts[i * n_seg : (i + 1) * n_seg]
-        rows = want_streams[i * n_seg : (i + 1) * n_seg].reshape(n_seg, -1)
+        cnt = want_counts[row0 : row0 + n_seg]
+        rows = want_streams[row0 : row0 + n_seg].reshape(n_seg, -1)
+        row0 += n_seg
         payload = np.concatenate([r[:k] for r, k in zip(rows, cnt)]).astype("<u2")
         back = spec.decode_channel_words(
             payload, cnt, p.size, s_seg=s_seg, ng=NG, freqs=tables[i][0],
@@ -104,6 +112,34 @@ def test_three_tables():
               (np.random.default_rng(2).integers(0, 4, 2 * S_SEG * NG)
                ).astype(np.uint8)]
     _run(planes)
+
+
+def test_planes_of_different_lengths_in_one_call():
+    """The sparse wire's one launch: bitmap-like and value-like planes of
+    1-4 segments under their own tables, elided segments between coded
+    ones and a plane of noise (every lane emits and refills), held to the
+    spec plane by plane."""
+    gap = np.zeros((3, S_SEG * NG), np.uint8)
+    gap[1] = _content("skewed", S_SEG * NG, seed=11)
+    planes = [_content("skewed", 2 * S_SEG * NG, seed=12),
+              _content("noise", S_SEG * NG, seed=13),
+              gap.reshape(-1),
+              (np.random.default_rng(14).integers(0, 4, 4 * S_SEG * NG)
+               ).astype(np.uint8)]
+    counts = _run(planes, folded=True)
+    assert list(counts[3:6] == 0) == [True, False, True]
+
+
+def test_planes_must_cover_the_streams():
+    sym = torch.zeros(3, 8, NG, dtype=torch.uint8)
+    f, c = _table(np.arange(256, dtype=np.uint8))
+    tabs = torch.from_numpy(np.stack([f, f])), torch.from_numpy(np.stack([c, c]))
+    for planes in ((1, 1), (2, 2), (3,), (4, -1)):
+        with pytest.raises(ValueError, match="planes"):
+            rans3.encode_words(sym, *tabs, planes=planes)
+    streams, counts = rans3.encode_words(sym, *tabs, planes=(1, 2))
+    with pytest.raises(ValueError, match="planes"):
+        rans3.decode_words(streams, counts, *tabs, s_seg=8, planes=(3, 0, 0))
 
 
 def test_worst_case_noise_stays_in_capacity():
