@@ -8,20 +8,23 @@
 //     -- and, on frames too large for one VMEM block (4K), their split
 //     spatial _axis_kernel: spatial_tiles stores int16 between its axes;
 //   * forward_3d_pallas / inverse_3d_pallas (_spatial_kernel +
-//     _temporal_kernel), int32 throughout, and their split _axis_kernel:
-//     row_lift is its W-axis form, col_lift its H-axis form.
+//     _temporal_kernel), int32 throughout, and their split _axis_kernel
+//     (K7b): spatial_tiles at int32, whose store between the axes is
+//     int32 as the TPU's is at the input's dtype.
 //
 // What bounds it on the H100: memory traffic.  Every step is a handful of
-// integer operations per coefficient, against 2-6 bytes moved per
+// integer operations per coefficient, against 2-8 bytes moved per
 // coefficient per pass (a 64x1080x1920 chunk holds 398 M coefficients).
 //
-// Fused kernels (K1 forward_quant, K4 inverse_dequant): two passes with one
-// int16 volume between them, the TPU kernels' own store (o_ref.astype at
-// lift_kernels.py:135 and :193).
+// Every lift here is two passes, one spatial and one temporal.  The fused
+// kernels (K1 forward_quant, K4 inverse_dequant) store one int16 volume
+// between them, the TPU kernels' own store (o_ref.astype at
+// lift_kernels.py:135 and :193); the plain 3D lift (K7) stores int32.
 //   * spatial_tiles: one 256-thread block per (plane, tile).  A 1080p
 //     frame does not fit shared memory, so a block lifts a halo window of
 //     64 rows x 256 columns held in registers: warp g owns rows 8g..8g+7,
-//     lane l columns 8l..8l+7 (one 16-byte load per row).  Lifting is
+//     lane l columns 8l..8l+7 (one 16-byte load per row at int16, two at
+//     int32; the storage type is a template argument).  Lifting is
 //     local: a step reads only its two neighbours, so a window whose cut
 //     edges lie `halo` (= the number of steps) or more positions from the
 //     stored tile gives the tile the full-frame values.  The stored tile is
@@ -42,19 +45,22 @@
 //     quantizes with a per-channel multiply-high reciprocal computed on the
 //     host (exact floor division for every numerator below 2^31) and
 //     zigzags; the inverse pass un-zigzags and dequantizes on the way in.
+//     K7's temporal_lift_t64 holds two int32 columns a thread (8-byte
+//     accesses; 2-3 % faster than one column a thread on the H100); other
+//     T take the shared-memory temporal_lift.
 //
 // Storage points follow the TPU kernels exactly: int32 inside a pass,
 // int16 where the Pallas kernels store.  An out-of-range inverse
 // intermediate therefore WRAPS at the temporal -> spatial boundary, and,
 // on frames the TPU splits (split = 1), between the two spatial axes
 // (lift_kernels.py:144), as on the TPU.  The plain 3D lift (K7) stores
-// int32 everywhere (its o_ref is int32).  Each of its passes holds whole
-// lines of its axis in shared memory where they fit and runs in place
-// after the first; lines that do not fit (W > 58112, H > 3632, T > 454)
-// are lifted in windows with a halo, from one int32 volume into another,
-// so only those shapes take a scratch volume.  Arithmetic that can overflow
-// runs in unsigned int (two's-complement wrap, no undefined behaviour);
-// right shifts of negative values are arithmetic.
+// int32 everywhere (its o_ref is int32; split = 0).  Its forward runs the
+// tiles from the input into the output and the temporal pass in place
+// there (T windowed: through a scratch volume); its inverse runs the
+// temporal pass into a scratch volume and the tiles from it into the
+// output, since overlapping windows cannot be lifted in place.  Arithmetic
+// that can overflow runs in unsigned int (two's-complement wrap, no
+// undefined behaviour); right shifts of negative values are arithmetic.
 
 #include <algorithm>
 #include <cstdint>
@@ -141,9 +147,9 @@ __host__ __device__ inline Span line_window(int k, int n, int win, int halo,
   return s;
 }
 
-// The K7 and temporal passes' windows of an axis of n positions: one
-// window [0, n) when n <= win (the host passes win = n where the whole
-// line fits shared memory), else clamped line windows.  Window k stores
+// The shared-memory temporal passes' windows of T = n frames: one window
+// [0, n) when n <= win (the host passes win = n where the whole column
+// fits shared memory), else clamped line windows.  Window k stores
 // [r0, r1) and lifts [lo, hi).
 __host__ __device__ inline int axis_windows(int n, int win, int halo) {
   return n <= win ? 1 : (n + win - 2 * halo - 1) / (win - 2 * halo);
@@ -166,63 +172,7 @@ __host__ __device__ __forceinline__ void axis_span(int k, int n, int win, int ha
   *hi = s.w0 + win;
 }
 
-// ---- K7 spatial passes ----------------------------------------------------
-
-// One block per (row of length w, window of it); all steps along the row.
-// in may equal out when the row is one window: a block then reads its
-// whole row before it writes it.
-template <bool WIN>
-__global__ void row_lift(const int32_t* in, int32_t* out, int w, int win,
-                         int halo, Steps st) {
-  extern __shared__ int line[];
-  int r0, r1, lo, hi;
-  axis_span<WIN>(blockIdx.y, w, win, halo, &r0, &r1, &lo, &hi);
-  const int n = hi - lo;
-  size_t base = (size_t)blockIdx.x * w + lo;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) line[i] = in[base + i];
-  __syncthreads();
-  for (int k = 0; k < st.n; ++k) {
-    int p = st.predict[k];
-    for (int i = p + 2 * threadIdx.x; i < n; i += 2 * blockDim.x)
-      lift_one(line, i, n, 1, st.coeff[k], p, st.sub);
-    __syncthreads();
-  }
-  for (int i = r0 - lo + threadIdx.x; i < r1 - lo; i += blockDim.x)
-    out[base + i] = line[i];
-}
-
-constexpr int kStrip = 16;  // columns per col_lift block (blockDim 16 x 16)
-
-// One block per (plane, strip of kStrip columns, window of rows); all
-// steps along H.  in may equal out when the column is one window.
-template <bool WIN>
-__global__ void col_lift(const int32_t* in, int32_t* out, int h, int w, int win,
-                         int halo, Steps st) {
-  extern __shared__ int strip[];  // [rows of the window][kStrip]
-  int tx = threadIdx.x, ty = threadIdx.y;
-  int col = blockIdx.x * kStrip + tx;
-  int r0, r1, lo, hi;
-  axis_span<WIN>(blockIdx.z, h, win, halo, &r0, &r1, &lo, &hi);
-  const int n = hi - lo;
-  size_t plane = (size_t)blockIdx.y * h * w + (size_t)lo * w;
-  bool live = col < w;
-  if (live)
-    for (int r = ty; r < n; r += blockDim.y)
-      strip[r * kStrip + tx] = in[plane + (size_t)r * w + col];
-  __syncthreads();
-  for (int k = 0; k < st.n; ++k) {
-    int p = st.predict[k];
-    if (live)
-      for (int i = p + 2 * ty; i < n; i += 2 * blockDim.y)
-        lift_one(strip + tx, i, n, kStrip, st.coeff[k], p, st.sub);
-    __syncthreads();
-  }
-  if (live)
-    for (int r = r0 - lo + ty; r < r1 - lo; r += blockDim.y)
-      out[plane + (size_t)r * w + col] = strip[r * kStrip + tx];
-}
-
-// ---- filters known at compile time (K1 / K4) --------------------------------
+// ---- filters known at compile time ------------------------------------------
 
 // The three filters of alice_codec_tpu/ops/wavelet.py (coefficients x 2^12;
 // every filter alternates predict, update): 0 Haar, 1 CDF 5/3, 2 CDF 9/7.
@@ -270,7 +220,7 @@ __device__ __forceinline__ void for_steps(Fn&& fn) {
   }
 }
 
-// ---- K1 / K4 spatial pass: halo tiles in registers --------------------------
+// ---- spatial pass (K1 / K4 / K7): halo tiles in registers -------------------
 
 constexpr int kSeg = 8;                   // columns a lane holds
 constexpr int kWinW = 32 * kSeg;          // window columns (one warp)
@@ -389,22 +339,24 @@ __device__ __forceinline__ void store_int16(Tile& v) {
 }
 
 // grid (ceil(w / kTileW), ceil(h / (kWinH - 2 halo)), planes): the W and H
-// lifts of one tile (forward: W then H; inverse: H then W), int16 in and
-// out, int16 between the axes when split.  FAST: h >= kWinH, w >= kWinW,
-// w % 8 == 0 and 16-byte aligned volumes; the window is clamped into the
-// frame and needs no bounds tests.
-template <class F, bool FWD, bool FAST>
+// lifts of one tile (forward: W then H; inverse: H then W), S (int16_t:
+// K1 / K4; int32_t: K7) in and out, int16 between the axes when split.
+// FAST: h >= kWinH, w >= kWinW, w % 8 == 0 and 16-byte aligned volumes;
+// the window is clamped into the frame and needs no bounds tests.
+template <class S, class F, bool FWD, bool FAST>
 __global__ void __launch_bounds__(kTileThreads, 2)
-    spatial_tiles(const int16_t* __restrict__ in, int16_t* __restrict__ out,
+    spatial_tiles(const S* __restrict__ in, S* __restrict__ out,
                   int h, int w, int halo, int split) {
+  static_assert(std::is_same_v<S, int16_t> || std::is_same_v<S, int32_t>);
   __shared__ int xch[2][kWarps][kSeg][32];
   const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
   const TileWindow tw = tile_window(blockIdx.x, blockIdx.y, h, w, halo, FAST);
   const int gr0 = tw.wr0 + g * kRows, gc = tw.wc0 + lane * kSeg;
   const size_t plane = (size_t)blockIdx.z * h * w;
   Tile v;
-  if (FAST) {
-    const int16_t* src = in + plane + (size_t)gr0 * w + gc;
+  constexpr bool kI16 = std::is_same_v<S, int16_t>;
+  if constexpr (FAST && kI16) {
+    const S* src = in + plane + (size_t)gr0 * w + gc;
     int4 q[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
@@ -417,6 +369,22 @@ __global__ void __launch_bounds__(kTileThreads, 2)
         v[i][2 * k] = (int16_t)(word[k] & 0xffff);
         v[i][2 * k + 1] = word[k] >> 16;
       }
+    }
+  } else if constexpr (FAST) {
+    const int4* src = reinterpret_cast<const int4*>(in + plane + (size_t)gr0 * w + gc);
+    const size_t row = w / 4;  // int4 a frame row
+    int4 q[2 * kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      q[2 * i] = __ldg(src + i * row);
+      q[2 * i + 1] = __ldg(src + i * row + 1);
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int word[8] = {q[2 * i].x,     q[2 * i].y,     q[2 * i].z,     q[2 * i].w,
+                           q[2 * i + 1].x, q[2 * i + 1].y, q[2 * i + 1].z, q[2 * i + 1].w};
+#pragma unroll
+      for (int j = 0; j < kSeg; ++j) v[i][j] = word[j];
     }
   } else {
 #pragma unroll
@@ -440,18 +408,24 @@ __global__ void __launch_bounds__(kTileThreads, 2)
     lift_w<F, FAST>(v, gc, w);
   }
   const int r0 = tw.r0, r1 = tw.r1, c0 = tw.c0, c1 = tw.c1;
-  if (FAST) {
+  if constexpr (FAST) {
     if (gc < c0 || gc >= c1) return;  // a lane's 8 columns are all in or out
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = gr0 + i;
       if (r < r0 || r >= r1) continue;
-      int4 q;
-      q.x = (int)__byte_perm(v[i][0], v[i][1], 0x5410);
-      q.y = (int)__byte_perm(v[i][2], v[i][3], 0x5410);
-      q.z = (int)__byte_perm(v[i][4], v[i][5], 0x5410);
-      q.w = (int)__byte_perm(v[i][6], v[i][7], 0x5410);
-      *reinterpret_cast<int4*>(out + plane + (size_t)r * w + gc) = q;
+      if constexpr (kI16) {
+        int4 q;
+        q.x = (int)__byte_perm(v[i][0], v[i][1], 0x5410);
+        q.y = (int)__byte_perm(v[i][2], v[i][3], 0x5410);
+        q.z = (int)__byte_perm(v[i][4], v[i][5], 0x5410);
+        q.w = (int)__byte_perm(v[i][6], v[i][7], 0x5410);
+        *reinterpret_cast<int4*>(out + plane + (size_t)r * w + gc) = q;
+      } else {
+        int4* dst = reinterpret_cast<int4*>(out + plane + (size_t)r * w + gc);
+        dst[0] = make_int4(v[i][0], v[i][1], v[i][2], v[i][3]);
+        dst[1] = make_int4(v[i][4], v[i][5], v[i][6], v[i][7]);
+      }
     }
   } else {
 #pragma unroll
@@ -461,13 +435,13 @@ __global__ void __launch_bounds__(kTileThreads, 2)
 #pragma unroll
       for (int j = 0; j < kSeg; ++j) {
         const int c = gc + j;
-        if (c >= c0 && c < c1) out[plane + (size_t)r * w + c] = (int16_t)v[i][j];
+        if (c >= c0 && c < c1) out[plane + (size_t)r * w + c] = (S)v[i][j];
       }
     }
   }
 }
 
-// ---- K1 / K4 temporal pass --------------------------------------------------
+// ---- temporal pass at T = 64: columns in registers ---------------------------
 
 // Per-channel quantizer: step, dead zone, and the reciprocal of the step
 // (m = ceil(2^(31+l) / step), l = ceil(log2 step), made on the host).
@@ -563,6 +537,30 @@ __global__ void __launch_bounds__(kPairThreads)
 #pragma unroll
   for (int i = 0; i < kT64; ++i)
     *reinterpret_cast<unsigned*>(out + base + (size_t)i * hw) = __byte_perm(a[i], b[i], 0x5410);
+}
+
+// grid (ceil(hw / 2 / 128), c): plain T lift (forward or inverse, by F) of
+// two neighbouring int32 columns a thread (hw even; 8-byte accesses and
+// aligned volumes).  Each thread reads its columns whole before it writes
+// them and no two threads share one, so in may equal out.
+template <class F>
+__global__ void __launch_bounds__(kPairThreads)
+    temporal_lift_t64(const int32_t* in, int32_t* out, int hw) {
+  const int pair = blockIdx.x * kPairThreads + threadIdx.x;
+  if (2 * pair >= hw) return;
+  const size_t base = (size_t)blockIdx.y * kT64 * hw + 2 * (size_t)pair;
+  int a[kT64], b[kT64];
+#pragma unroll
+  for (int i = 0; i < kT64; ++i) {
+    const int2 u = *reinterpret_cast<const int2*>(in + base + (size_t)i * hw);
+    a[i] = u.x;
+    b[i] = u.y;
+  }
+  lift_col<F, kT64>(a);
+  lift_col<F, kT64>(b);
+#pragma unroll
+  for (int i = 0; i < kT64; ++i)
+    *reinterpret_cast<int2*>(out + base + (size_t)i * hw) = make_int2(a[i], b[i]);
 }
 
 // ---- temporal passes for any T (shared-memory columns) ----------------------
@@ -684,13 +682,10 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 unsigned cdiv(size_t a, size_t b) { return (unsigned)((a + b - 1) / b); }
 
-// Shared memory a block may use, and the windows of the passes that hold
-// a whole line of an axis in it (see axis_span): rows of 8192 columns
-// (32 KB), columns of 256 rows (16 KB a 16-column strip), temporal columns
-// of 64 frames (32 KB for 128 columns).
+// Shared memory a block may use, and the window of the temporal column
+// kernels where a whole column does not fit it (see axis_span): 64 frames
+// (32 KB for 128 columns).
 constexpr size_t kSmemLimit = 232448;
-constexpr int kRowWin = 8192;
-constexpr int kColWin = 256;
 constexpr int kTWin = 64;
 
 // A pass's window along an axis of n positions of `bytes` of shared
@@ -716,9 +711,30 @@ cudaError_t temporal_launch(K whole, K windowed, int c, int t, size_t hw,
   return cudaGetLastError();
 }
 
+// Whether a temporal column kernel lifts T = t in windows (then it reads
+// one volume and writes another).
+bool t_windowed(int t) {
+  return t > pass_win(t, kTemporalThreads * sizeof(int), kTWin);
+}
+
 // spatial_tiles' grid: one block per tile of each of `planes` frames.
 dim3 tile_grid(int h, int w, int halo, int planes) {
   return dim3(cdiv(w, kTileW), cdiv(h, kWinH - 2 * halo), (unsigned)planes);
+}
+
+bool aligned(const void* p, size_t bytes) { return (uintptr_t)p % bytes == 0; }
+
+// The spatial pass of filter F on `planes` frames of S: its FAST form
+// where the frame and the volumes' alignment allow it.
+template <class S, class F, bool FWD>
+cudaError_t spatial_launch(const S* in, S* out, int planes, int h, int w,
+                           int halo, int split, cudaStream_t s) {
+  const dim3 grid = tile_grid(h, w, halo, planes);
+  if (fast_frame(h, w) && aligned(in, 16) && aligned(out, 16))
+    spatial_tiles<S, F, FWD, true><<<grid, kTileThreads, 0, s>>>(in, out, h, w, halo, split);
+  else
+    spatial_tiles<S, F, FWD, false><<<grid, kTileThreads, 0, s>>>(in, out, h, w, halo, split);
+  return cudaGetLastError();
 }
 
 // Whether the n steps given equal filter B's in mode M.
@@ -731,22 +747,15 @@ bool is_filter(const Steps& st) {
   return true;
 }
 
-bool aligned(const void* p, size_t bytes) { return (uintptr_t)p % bytes == 0; }
-
 // The two passes of K1 with filter F.
 template <class F>
 cudaError_t forward_quant_run(const int16_t* vol, int16_t* tmp16, uint8_t* out,
                               const QuantParams* qp, int c, int t, int h, int w,
                               int halo, int split, const Steps& st,
                               cudaStream_t s) {
-  const bool fast = fast_frame(h, w) && aligned(vol, 16) && aligned(tmp16, 16);
-  const dim3 grid = tile_grid(h, w, halo, c * t);
-  if (fast)
-    spatial_tiles<F, true, true><<<grid, kTileThreads, 0, s>>>(vol, tmp16, h, w, halo, split);
-  else
-    spatial_tiles<F, true, false><<<grid, kTileThreads, 0, s>>>(vol, tmp16, h, w, halo, split);
   cudaError_t e;
-  if ((e = cudaGetLastError())) return e;
+  if ((e = spatial_launch<int16_t, F, true>(vol, tmp16, c * t, h, w, halo, split, s)))
+    return e;
   const size_t hw = (size_t)h * w;
   if (t == kT64 && aligned(out, 2)) {
     temporal_quant_t64<F><<<dim3(cdiv(hw / 2, kPairThreads), c), kPairThreads, 0, s>>>(
@@ -775,13 +784,44 @@ cudaError_t inverse_dequant_run(const uint8_t* sym, int16_t* tmp16, int16_t* out
                         hw, halo, st, s, sym, tmp16, step);
   }
   if (e || (e = cudaGetLastError())) return e;
-  const bool fast = fast_frame(h, w) && aligned(tmp16, 16) && aligned(out, 16);
-  const dim3 grid = tile_grid(h, w, halo, c * t);
-  if (fast)
-    spatial_tiles<F, false, true><<<grid, kTileThreads, 0, s>>>(tmp16, out, h, w, halo, split);
-  else
-    spatial_tiles<F, false, false><<<grid, kTileThreads, 0, s>>>(tmp16, out, h, w, halo, split);
-  return cudaGetLastError();
+  return spatial_launch<int16_t, F, false>(tmp16, out, c * t, h, w, halo, split, s);
+}
+
+// K7's temporal pass with filter F, in -> out (in may equal out where T is
+// not windowed).
+template <class F>
+cudaError_t temporal_3d(const int32_t* in, int32_t* out, int c, int t, size_t hw,
+                        int halo, const Steps& st, cudaStream_t s) {
+  if (t == kT64 && aligned(in, 8) && aligned(out, 8)) {
+    temporal_lift_t64<F><<<dim3(cdiv(hw / 2, kPairThreads), c), kPairThreads, 0, s>>>(
+        in, out, (int)hw);
+    return cudaGetLastError();
+  }
+  return temporal_launch(temporal_lift<false>, temporal_lift<true>, c, t, hw,
+                         halo, st, s, in, out);
+}
+
+// The two passes of K7's forward with filter F: the tiles from vol into
+// out, then T in place; where T is windowed, tiles into tmp and T from it.
+template <class F>
+cudaError_t forward_3d_run(const int32_t* vol, int32_t* out, int32_t* tmp, int c,
+                           int t, int h, int w, int halo, const Steps& st,
+                           cudaStream_t s) {
+  int32_t* mid = t_windowed(t) ? tmp : out;
+  cudaError_t e;
+  if ((e = spatial_launch<int32_t, F, true>(vol, mid, c * t, h, w, halo, 0, s))) return e;
+  return temporal_3d<F>(mid, out, c, t, (size_t)h * w, halo, st, s);
+}
+
+// The two passes of K7's inverse with filter F: T into tmp, then the tiles
+// from tmp into out.
+template <class F>
+cudaError_t inverse_3d_run(const int32_t* coeffs, int32_t* out, int32_t* tmp, int c,
+                           int t, int h, int w, int halo, const Steps& st,
+                           cudaStream_t s) {
+  cudaError_t e;
+  if ((e = temporal_3d<F>(coeffs, tmp, c, t, (size_t)h * w, halo, st, s))) return e;
+  return spatial_launch<int32_t, F, false>(tmp, out, c * t, h, w, halo, 0, s);
 }
 
 bool bad_halo(int halo, int n) {
@@ -887,109 +927,71 @@ extern "C" int alc_tile_windows(int h, int w, int halo, int* out, int cap) {
   return k;
 }
 
-// The three K7 passes along W, H and T.  Each holds a whole line of its
-// axis in shared memory where it fits, else windows of it (axis_span, with
-// a halo of the filter's step count rounded up to even).  A pass of one
-// window may lift its buffer in place; a windowed one reads one buffer
-// and writes the other, since its windows overlap.
-struct Lift3d {
-  Steps st;
-  int c, t, h, w, halo, row_win, col_win, t_win;
-  cudaStream_t s;
-
-  Lift3d(const Steps& st_, int c_, int t_, int h_, int w_, cudaStream_t s_)
-      : st(st_), c(c_), t(t_), h(h_), w(w_), halo((st_.n + 1) & ~1), s(s_) {
-    row_win = pass_win(w, sizeof(int), kRowWin);
-    col_win = pass_win(h, kStrip * sizeof(int), kColWin);
-    t_win = pass_win(t, kTemporalThreads * sizeof(int), kTWin);
-  }
-  // Whether the forward (T last) or the inverse (W last) lift needs the
-  // second buffer: the first pass reads the input, so only a windowed
-  // later pass does.
-  bool needs_tmp(bool forward) const {
-    return h > col_win || (forward ? t > t_win : w > row_win);
-  }
-  cudaError_t rows(const int32_t* in, int32_t* out) const {
-    const size_t smem = (size_t)row_win * sizeof(int);
-    const size_t lines = (size_t)c * t * h;  // grid.x, at most 2^31 - 1
-    if (lines > 0x7fffffffu) return cudaErrorInvalidConfiguration;
-    const auto kernel = w > row_win ? row_lift<true> : row_lift<false>;
-    cudaError_t e;
-    if ((e = allow_smem(kernel, smem))) return e;
-    kernel<<<dim3((unsigned)lines, axis_windows(w, row_win, halo)),
-             256, smem, s>>>(in, out, w, row_win, halo, st);
-    return cudaGetLastError();
-  }
-  cudaError_t cols(const int32_t* in, int32_t* out) const {
-    const size_t smem = (size_t)col_win * kStrip * sizeof(int);
-    const auto kernel = h > col_win ? col_lift<true> : col_lift<false>;
-    cudaError_t e;
-    if ((e = allow_smem(kernel, smem))) return e;
-    kernel<<<dim3(cdiv(w, kStrip), c * t, axis_windows(h, col_win, halo)),
-             dim3(kStrip, 16), smem, s>>>(in, out, h, w, col_win, halo, st);
-    return cudaGetLastError();
-  }
-  cudaError_t frames(const int32_t* in, int32_t* out) const {
-    return temporal_launch(temporal_lift<false>, temporal_lift<true>, c, t,
-                           (size_t)h * w, halo, st, s, in, out);
-  }
-};
-
-// Plain forward: i32 volume (c, t, h, w) -> i32 coefficients, W then H then
-// T.  A grid beyond the card's limits (C·T above 65535, C·T·H rows or the
-// windows of an axis beyond their grid dimension) is reported as
-// cudaErrorInvalidConfiguration.  The row pass writes out or tmp, so that the column and temporal
-// passes, each in place or to the other buffer, end in out.  tmp: an
-// i32 volume like out, needed only where H or T is windowed (else may be
-// null; cudaErrorInvalidValue if it is needed and null).  coeff /
-// predict: host arrays of the n forward steps.
+// Plain forward (K7): i32 volume (c, t, h, w) -> i32 coefficients, W and
+// H in halo tiles (spatial_tiles at int32, the halo the filter's step
+// count), then T.  tmp: an i32 volume like out, needed only where T is
+// windowed (alc_lift3d_scratch; else may be null; cudaErrorInvalidValue if
+// it is needed and null).  coeff / predict: host arrays of the n forward
+// steps, which must be one of the three filters (else
+// cudaErrorInvalidValue).  A grid beyond the card's limits (C·T above
+// 65535, more than 65535 tiles down a frame) is reported by its launch.
 extern "C" int alc_forward_3d(const void* vol, void* out, void* tmp, int c,
                               int t, int h, int w, int n, const int* coeff,
                               const int* predict, void* stream) {
-  const Lift3d k(make_steps(n, coeff, predict, 0), c, t, h, w,
-                 (cudaStream_t)stream);
-  const bool col_in = h <= k.col_win, t_in = t <= k.t_win;
-  int32_t* o = (int32_t*)out;
-  int32_t* x = (int32_t*)tmp;
-  if (k.needs_tmp(true) && x == nullptr) return cudaErrorInvalidValue;
-  int32_t* a = (!col_in + !t_in) % 2 ? x : o;  // the row pass's output
-  int32_t* b = col_in ? a : (a == o ? x : o);  // the column pass's
-  cudaError_t e;
-  if ((e = k.rows((const int32_t*)vol, a))) return e;
-  if ((e = k.cols(a, b))) return e;
-  return k.frames(b, o);
+  const Steps st = make_steps(n, coeff, predict, 0);
+  if (t_windowed(t) && tmp == nullptr) return cudaErrorInvalidValue;
+  const auto* v = (const int32_t*)vol;
+  auto* o = (int32_t*)out;
+  auto* x = (int32_t*)tmp;
+  const int halo = (n + 1) & ~1;
+  cudaStream_t s = (cudaStream_t)stream;
+#define ALC_K7(B)                                                                 \
+  if (is_filter<B, kForward>(st))                                                 \
+    return forward_3d_run<Filter<B, kForward>>(v, o, x, c, t, h, w, halo, st, s);
+  ALC_K7(0)
+  ALC_K7(1)
+  ALC_K7(2)
+#undef ALC_K7
+  return cudaErrorInvalidValue;
 }
 
-// Plain inverse: i32 coefficients -> i32 volume, T then H then W (the
-// temporal pass writes out or tmp, so that the column and row passes end
-// in out).  tmp: as for alc_forward_3d, needed only where H or W is
-// windowed.  coeff / predict: the n inverse steps in application order
-// (negated coefficients for the compat inverse); sub = 1 for exact undo.
+// Plain inverse (K7): i32 coefficients -> i32 volume, T into tmp (an i32
+// volume like out, always needed), then H and W in halo tiles from tmp
+// into out.  coeff / predict: the n inverse steps in application order
+// (negated coefficients for the compat inverse); sub = 1 for exact undo;
+// errors as for alc_forward_3d.
 extern "C" int alc_inverse_3d(const void* coeffs, void* out, void* tmp, int c,
                               int t, int h, int w, int n, const int* coeff,
                               const int* predict, int sub, void* stream) {
-  const Lift3d k(make_steps(n, coeff, predict, sub), c, t, h, w,
-                 (cudaStream_t)stream);
-  const bool col_in = h <= k.col_win, row_in = w <= k.row_win;
-  int32_t* o = (int32_t*)out;
-  int32_t* x = (int32_t*)tmp;
-  if (k.needs_tmp(false) && x == nullptr) return cudaErrorInvalidValue;
-  int32_t* a = (!col_in + !row_in) % 2 ? x : o;  // the temporal pass's output
-  int32_t* b = col_in ? a : (a == o ? x : o);    // the column pass's
-  cudaError_t e;
-  if ((e = k.frames((const int32_t*)coeffs, a))) return e;
-  if ((e = k.cols(a, b))) return e;
-  return k.rows(b, o);
+  const Steps st = make_steps(n, coeff, predict, sub);
+  if (tmp == nullptr) return cudaErrorInvalidValue;
+  const auto* in = (const int32_t*)coeffs;
+  auto* o = (int32_t*)out;
+  auto* x = (int32_t*)tmp;
+  const int halo = (n + 1) & ~1;
+  cudaStream_t s = (cudaStream_t)stream;
+#define ALC_K7(B, M)                                                          \
+  if (is_filter<B, M>(st))                                                    \
+    return inverse_3d_run<Filter<B, M>>(in, o, x, c, t, h, w, halo, st, s);
+  ALC_K7(0, kInverseCompat)
+  ALC_K7(1, kInverseCompat)
+  ALC_K7(2, kInverseCompat)
+  ALC_K7(0, kInverseExact)
+  ALC_K7(1, kInverseExact)
+  ALC_K7(2, kInverseExact)
+#undef ALC_K7
+  return cudaErrorInvalidValue;
 }
 
 // Whether alc_forward_3d (forward = 1) or alc_inverse_3d needs its tmp
-// volume for frames of (t, h, w).
-extern "C" int alc_lift3d_scratch(int t, int h, int w, int forward) {
-  return Lift3d(Steps{}, 1, t, h, w, nullptr).needs_tmp(forward);
+// volume for chunks of t frames: the inverse always (its tile pass cannot
+// run in place), the forward where T is windowed (T > 454).
+extern "C" int alc_lift3d_scratch(int t, int forward) {
+  return !forward || t_windowed(t);
 }
 
-// The windows the K7 and temporal passes lift an axis of n positions in,
-// given the pass's window win (n itself where the whole line fits shared
+// The windows the temporal column kernels lift T = n frames in, given
+// the pass's window win (n itself where the whole column fits shared
 // memory) and `halo`: 4 ints a window, the stored [r0, r1) and the
 // lifted [lo, hi), as axis_span gives them.  Writes at most `cap` windows
 // to out (host memory); returns the number of windows.

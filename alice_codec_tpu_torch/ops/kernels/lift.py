@@ -23,10 +23,12 @@ into a W pass and an H pass with an int16 store between them
 on those frames (:func:`split_frame`).  The plain 3D lift (the rdo, deep
 and multi-level modes' level 0) stores int32 throughout and never wraps.
 
-The fused CUDA kernels lift each frame in halo tiles (:func:`tile_windows`:
-a window of ``_WIN_H`` x ``_WIN_W`` around each stored tile, with
-:func:`spatial_halo` rows and ``_HALO_W`` columns of halo) and quantize
-with a per-channel reciprocal of the step (:func:`reciprocal`).
+Every CUDA lift runs as two passes, spatial and temporal.  The spatial
+pass lifts each frame in halo tiles (:func:`tile_windows`: a window of
+``_WIN_H`` x ``_WIN_W`` around each stored tile, with :func:`spatial_halo`
+rows and ``_HALO_W`` columns of halo), at int16 for the fused kernels and
+at int32 for the plain 3D lift; the fused forward kernel quantizes with a
+per-channel reciprocal of the step (:func:`reciprocal`).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ __all__ = ["forward_quant", "inverse_dequant", "forward_quant_plain",
 #: frame budget of the TPU's one-block spatial kernel (lift_kernels.py
 #: _FRAME_BYTES); larger int16 frames take its split spatial path
 _FRAME_BYTES = 9 * 1024 * 1024
-# the fused kernels' spatial tiles (csrc/lift.cu kWinH, kWinW, kHaloW, kSeg)
+# the spatial pass's tiles (csrc/lift.cu kWinH, kWinW, kHaloW, kSeg)
 _WIN_H, _WIN_W, _HALO_W, _SEG = 64, 256, 8, 8
 _TILE_W = _WIN_W - 2 * _HALO_W
 
@@ -80,8 +82,8 @@ def _int16(x: torch.Tensor) -> torch.Tensor:
 
 
 def spatial_halo(wavelet) -> int:
-    """Rows of halo the fused kernels load above and below a tile: one per
-    lifting step, the farthest a step's result can travel."""
+    """Rows of halo the spatial pass loads above and below a tile: one
+    per lifting step, the farthest a step's result can travel."""
     return len(lift_steps(wavelet))
 
 
@@ -100,7 +102,7 @@ def line_windows(n: int, win: int, halo: int, clamp: bool):
 
 
 def tile_windows(h: int, w: int, halo: int):
-    """The tiles of the fused kernels' spatial pass on an (h, w) frame:
+    """The tiles of the CUDA kernels' spatial pass on an (h, w) frame:
     ``((r0, r1), (c0, c1), (wr0, wr1), (wc0, wc1))`` per tile — the rows
     and columns it stores, and the window it lifts them in (clipped to the
     frame; the window's cut edges lie ``halo`` rows and ``_HALO_W``
@@ -117,9 +119,9 @@ def tile_windows(h: int, w: int, halo: int):
 
 
 def axis_windows(n: int, win: int, halo: int):
-    """The windows of the K7 and temporal passes along an axis of ``n``
-    positions lifted in windows of ``win`` (csrc/lift.cu ``axis_span``;
-    the library picks ``win``, ``n`` itself where the line fits shared
+    """The windows of the shared-memory temporal passes along T = ``n``
+    frames lifted in windows of ``win`` (csrc/lift.cu ``axis_span``; the
+    library picks ``win``, ``n`` itself where the column fits shared
     memory): ``((r0, r1), (lo, hi))`` per window — one window ``[0, n)``
     when ``n <= win``, else :func:`line_windows` clamped into the axis.
     A model for the CPU tests, held equal to :func:`kernel_axis_windows`
@@ -210,7 +212,7 @@ def _lib() -> ctypes.CDLL:
         lib.alc_forward_3d.restype = i
         lib.alc_inverse_3d.argtypes = [p, p, p, i, i, i, i, i, p, p, i, p]
         lib.alc_inverse_3d.restype = i
-        lib.alc_lift3d_scratch.argtypes = [i, i, i, i]
+        lib.alc_lift3d_scratch.argtypes = [i, i]
         lib.alc_lift3d_scratch.restype = i
         lib.alc_axis_windows.argtypes = [i, i, i, p, i]
         lib.alc_axis_windows.restype = i
@@ -228,10 +230,11 @@ def _step_arrays(steps):
 def _check_cuda_shape(x: torch.Tensor) -> None:
     """Raise for a shape the kernels cannot take: more than 65535 frames
     in all (C·T, a grid dimension of every kernel) or a frame of 2^31
-    pixels or more.  Lines too long for shared memory are lifted in
-    windows, so no axis has a length limit of its own; a grid the card
-    cannot launch for a rarer reason (more than 2^31 - 1 rows, or 65535
-    windows of an axis) is reported by the library's launch."""
+    pixels or more.  Frames are lifted in tiles and long chunks in windows
+    of frames, so no axis has a length limit of its own; a grid the card
+    cannot launch for a rarer reason (more than 65535 tiles down a frame:
+    H above 3,669,960 rows in CDF 9/7, 3,932,100 in the others; or more
+    than 65535 windows of frames) is reported by the library's launch."""
     c, t, h, w = x.shape
     if c * t > 65535 or h * w > 2**31 - 1:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the grid limit "
@@ -240,10 +243,10 @@ def _check_cuda_shape(x: torch.Tensor) -> None:
 
 def _k7_scratch(shape, *, forward: bool) -> bool:
     """Whether K7 needs an int32 scratch volume for ``shape``, as the
-    library decides it: a pass lifted in windows reads one buffer and
-    writes another.  Needs the built library, not a card."""
-    _, t, h, w = shape
-    return bool(_lib().alc_lift3d_scratch(t, h, w, int(forward)))
+    library decides it: the inverse always (its tile pass cannot run in
+    place), the forward where T is lifted in windows of frames.  Needs the
+    built library, not a card."""
+    return bool(_lib().alc_lift3d_scratch(shape[1], int(forward)))
 
 
 def _quant_params(step, dead_zone, c: int, device) -> torch.Tensor:
@@ -274,7 +277,7 @@ def reciprocal_mismatches(steps, device) -> int:
 
 
 def kernel_tile_windows(h: int, w: int, halo: int):
-    """The tiles the fused kernels' spatial pass lifts on an (h, w) frame,
+    """The tiles the CUDA kernels' spatial pass lifts on an (h, w) frame,
     as the CUDA library computes them for its launches, in the form of
     :func:`tile_windows` (which the CPU tests hold; this ties it to the
     kernel).  Needs the built library, not a card."""
@@ -289,9 +292,9 @@ def kernel_tile_windows(h: int, w: int, halo: int):
 
 
 def kernel_axis_windows(n: int, win: int, halo: int):
-    """The windows the library's K7 and temporal passes lift an axis of
-    ``n`` positions in, in the form of :func:`axis_windows`.  Needs the
-    built library, not a card."""
+    """The windows the library's shared-memory temporal passes lift T =
+    ``n`` frames in, in the form of :func:`axis_windows`.  Needs the built
+    library, not a card."""
     cap = len(axis_windows(n, win, halo))
     buf = (ctypes.c_int * (4 * cap))()
     k = _lib().alc_axis_windows(n, win, halo, ctypes.addressof(buf), cap)

@@ -19,18 +19,20 @@ Phases (any failure raises and exits non-zero before the last line):
    intermediates; int32 volumes far beyond int16; sparse planes at
    densities 0-100 % with capacities that differ per plane, and a hostile
    bitmap; the quantizer's reciprocal over every non-negative int32; the
-   fused lifts' tiles against ``lift.tile_windows``, the model the CPU
-   tests hold; lines too long for shared memory, lifted in windows: a
-   3640-row and a 58368-column frame in the plain 3D lift and 456- and
-   1000-frame chunks in all the lifts; the word-rANS kernels over planes of different segment
+   spatial pass's tiles against ``lift.tile_windows``, the model the CPU
+   tests hold; a 3640-row and a 58368-column frame in the plain 3D lift,
+   whose tiles cover any frame, and 456- and 1000-frame chunks, lifted
+   in windows of frames, in all the lifts; the word-rANS kernels over
+   planes of different segment
    counts and tables in one launch, with noise and corrupt counts, and
    the encoder's reciprocal division at every frequency), and the
    word-rANS kernels again on the north star's planes as its one launch
    each way gets them;
-   with per-kernel timings and the fused lifts' device time split by
-   kernel; then a 4K check (16×2160×3840, where the JAX package splits
-   its spatial pass into single-axis band kernels): the fused and the
-   plain 3D lifts on that chunk against their plain versions, and a
+   with per-kernel timings and the lifts' device time split by kernel
+   (spatial and temporal pass); then a 4K check (16×2160×3840, where the
+   JAX package splits its spatial pass into single-axis band kernels):
+   the fused lifts and the plain 3D lift (all three wavelets, both
+   inverse modes) on that chunk against their plain versions, and a
    dense q=90 and a deep q=100 roundtrip of it;
 3. the committed JAX-written goldens (``tests/golden/torch``, its
    ``sparse/`` and its ``modes/``): the port decodes each container to
@@ -381,8 +383,11 @@ def main() -> int:
           "kernel's tiles equal lift.tile_windows; the reciprocal exact for "
           "every n < 2^31 at steps 1-64, 160, 1000")
     # the plain 3D lift at small shapes, int32 far beyond int16 (an int16
-    # store between its passes would wrap here)
-    for shape in ((3, 6, 38, 52), (1, 4, 70, 34), (2, 2, 2, 2)):
+    # store between its passes would wrap here), with tiles clamped into
+    # the frame (the spatial pass's fast form) and T = 64 (the temporal
+    # pass in registers) in the last two
+    for shape in ((3, 6, 38, 52), (1, 4, 70, 34), (2, 2, 2, 2),
+                  (3, 64, 130, 520), (1, 64, 64, 256)):
         big = torch.as_tensor(
             rng.integers(-(1 << 20), 1 << 20, shape, dtype=np.int32), device=dev)
         for w_small in WaveletType:
@@ -401,12 +406,10 @@ def main() -> int:
                   f"inverse_3d exact does not invert forward_3d {w_small.name}")
     print("small shapes: forward_3d / inverse_3d bit-exact (3 wavelets, both "
           "inverse modes, int32 values to ±2^20)")
-    # lines too long for shared memory, lifted in windows with a halo: K7
-    # on a frame taller than its column strip holds (3632 rows) and on one
-    # wider than its row holds (58112 columns; the inverse then writes
-    # through its scratch volume), and K1 / K4 / K7 on chunks longer than
-    # their temporal columns hold (454 frames), each against its plain
-    # version
+    # long lines: K7 on a 3640-row and a 58368-column frame (one tile
+    # column; one tile row), and K1 / K4 / K7 on chunks longer than their
+    # temporal columns hold (454 frames: windows of frames with a halo),
+    # each against its plain version
     long_shapes = ((1, 4, 3640, 32), (1, 2, 8, 58368), (2, 456, 8, 32),
                    (2, 1000, 8, 32))
     for shape in long_shapes:
@@ -435,7 +438,7 @@ def main() -> int:
         del big, v16, sym_r, a, a16
     print(f"long lines: forward_3d / inverse_3d / forward_quant / "
           f"inverse_dequant bit-exact at {list(long_shapes)} (3 wavelets, both "
-          f"inverse modes; H, W and T lifted in windows)")
+          f"inverse modes; T lifted in windows past 454 frames)")
     # the word-rANS kernels at small shapes: one launch over planes of
     # different segment counts and tables (noise, where every lane emits
     # and refills in one step; elided segments between coded ones), then
@@ -554,17 +557,25 @@ def main() -> int:
         torch.cuda.empty_cache()
     c_k = forward_3d(chans32, wt)
     k7_bound = bound_ms(chans32.numel() * 4 * 2)
+    k7_fns = {"forward_3d": lambda: forward_3d(chans32, wt),
+              "inverse_3d": lambda: inverse_3d(c_k, wt, exact=True)}
     stats["forward_3d"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: forward_3d(chans32, wt), 10),
+        max_abs_err=err, ms=time_ms(k7_fns["forward_3d"], 10),
         plain_ms=time_ms(lambda: forward_3d_plain(chans32, wt), 2),
         bound_ms=k7_bound)
     stats["inverse_3d"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: inverse_3d(c_k, wt, exact=True), 10),
+        max_abs_err=err, ms=time_ms(k7_fns["inverse_3d"], 10),
         plain_ms=time_ms(lambda: inverse_3d_plain(c_k, wt, exact=True), 2),
         bound_ms=k7_bound)
-    del chans32, c_k
+    for name, fn in k7_fns.items():
+        # the split must hold both passes
+        stats[name]["kernel_split"] = split = kernel_split(
+            fn, need=("spatial_tiles", "temporal_lift"))
+        print(f"{name} {wt.name}: {stats[name]['ms']:.3f} ms per call (bytes "
+              f"bound {k7_bound:.3f} ms); one call by kernel: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+              + f" [{card}]")
+    del chans32, c_k, k7_fns
     torch.cuda.empty_cache()
     print("full width: forward_3d / inverse_3d bit-exact at int32 "
           f"{T}x{H}x{W} (3 wavelets, both inverse modes)")
@@ -748,13 +759,14 @@ def main() -> int:
     del sym50, trows50, bm_k, vals_k, out_k, mask, nz
     torch.cuda.empty_cache()
     # 4K: frames the JAX package's fused spatial kernel cannot hold, so it
-    # splits the pass into single-axis band kernels (K7b) with an int16
-    # store between them.  Here the fused kernels (K1 / K4) take their
-    # spatial tile kernel with that int16 store, and the plain 3D lift
-    # (K7) its row_lift and col_lift, at every frame size.  Both on a 4K
-    # chunk against their plain versions, then a dense q=90 and a deep
-    # q=100 roundtrip of it with the launches of the lift wrappers (each
-    # K7 launch runs one row_lift and one col_lift).
+    # splits the pass into single-axis band kernels (K7b), storing at the
+    # input's dtype between them (int16 in the fused kernels, int32 in the
+    # plain 3D lift).  Here every lift takes its spatial tile kernel at
+    # every frame size: the fused kernels (K1 / K4) with that int16 store,
+    # the plain 3D lift (K7) at int32.  Both on a 4K chunk against their
+    # plain versions, then a dense q=90 and a deep q=100 roundtrip of it
+    # with the launches of the lift wrappers (each K7 launch runs one
+    # spatial_tiles).
     t0 = time.perf_counter()
     rgb4k = torch.as_tensor(_test_chunk(T4K, H4K, W4K, seed=1), device=dev)
     padded4k = (W4K, H4K, T4K)
@@ -775,7 +787,7 @@ def main() -> int:
     del ch16, s4
     torch.cuda.empty_cache()
     ch32 = pipeline._color_pad(rgb4k, padded4k, torch.int32)
-    for w4 in (wt, WaveletType.HAAR):
+    for w4 in WaveletType:
         c4 = forward_3d(ch32, w4)
         check(max_abs_err(c4, forward_3d_plain(ch32, w4)) == 0,
               f"forward_3d {w4.name} differs at 4K")
@@ -785,13 +797,12 @@ def main() -> int:
                   f"inverse_3d {w4.name} exact={exact} differs at 4K")
         del c4
         torch.cuda.empty_cache()
-    # K7b's time: the row and column kernels inside one forward_3d call
+    # K7b's time: the int32 spatial_tiles kernel inside one forward_3d call
     forward_3d(ch32, wt)
     _, rows = device_profile(lambda: forward_3d(ch32, wt),
-                             need=("row_lift<", "col_lift<"))
-    row_ms = sum(ms for key, ms, _ in rows if "row_lift<" in key)
-    col_ms = sum(ms for key, ms, _ in rows if "col_lift<" in key)
-    spatial_ms = row_ms + col_ms
+                             need=("spatial_tiles<", "temporal_lift"))
+    spatial_ms = sum(ms for key, ms, _ in rows if "spatial_tiles<" in key)
+    temporal_ms = sum(ms for key, ms, _ in rows if "temporal_lift" in key)
     steps_f = wavelet.lift_steps(wt)
     k7b_plain = time_ms(lambda: wavelet.lift_axis(
         wavelet.lift_axis(ch32, steps_f, -1), steps_f, -2), 2)
@@ -812,15 +823,16 @@ def main() -> int:
     check(bool(torch.equal(out4d, rgb4k)),
           "deep q=100 at 4K: exact decode differs from the input")
     mse4 = float(((out4.float() - rgb4k.float()) ** 2).mean().item())
-    stats["row_col_lift"] = dict(max_abs_err=0, ms=spatial_ms,
-                                 plain_ms=k7b_plain, bound_ms=k7b_bound)
+    stats["row_col_lift"] = dict(
+        max_abs_err=0, ms=spatial_ms, plain_ms=k7b_plain, bound_ms=k7b_bound,
+        kernel_split={"spatial_tiles": spatial_ms, "temporal_lift": temporal_ms})
     print(f"4K {T4K}x{H4K}x{W4K}: forward_quant / inverse_dequant / "
-          f"forward_3d / inverse_3d bit-exact; row_lift + col_lift "
-          f"{spatial_ms:.3f} ms ({row_ms:.3f} + {col_ms:.3f}) in one "
+          f"forward_3d / inverse_3d bit-exact; spatial_tiles "
+          f"{spatial_ms:.3f} ms (temporal pass {temporal_ms:.3f}) in one "
           f"forward_3d (plain W+H lift "
           f"{k7b_plain:.1f} ms); dense q=90 PSNR "
           f"{10 * np.log10(255.0 ** 2 / mse4):.4f} dB, deep q=100 lossless; "
-          f"{k7b_launches} K7 launches (row_lift + col_lift), "
+          f"{k7b_launches} K7 launches (one spatial_tiles each), "
           f"{time.perf_counter() - t0:.1f} s "
           f"[{card}]")
     del rgb4k, out4, out4d, d4, lossless
@@ -1311,9 +1323,9 @@ def main() -> int:
         "forward_3d": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:328"),
         "inverse_3d": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:342"),
         # K7b: the split spatial pass, whose counterpart in the plain 3D
-        # lift (K7) is its row and column kernels (the fused K1 / K4 split
-        # inside their spatial tile kernel); its launches are K7's on the
-        # 4K deep roundtrip of phase 2
+        # lift (K7) is its int32 spatial tile kernel (the fused K1 / K4
+        # split inside their int16 one); its launches are K7's on the 4K
+        # deep roundtrip of phase 2
         "row_col_lift": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:138"),
         "encode_nway": ("rans_nway.cu", "alice_codec_tpu/ops/pallas/rans_kernel.py:125"),
         "decode_nway": ("rans_nway.cu",

@@ -263,7 +263,11 @@ def test_sparse_goldens_on_card(cuda):
 
 
 @pytest.mark.parametrize("wt", list(WaveletType))
-@pytest.mark.parametrize("shape", [(3, 2, 2, 2), (3, 6, 38, 52), (1, 4, 70, 34)])
+@pytest.mark.parametrize("shape", [
+    (3, 2, 2, 2), (3, 6, 38, 52), (1, 4, 70, 34),
+    # tiles clamped into the frame (the spatial pass's fast form) and T = 64
+    # (the temporal pass in registers)
+    (3, 64, 130, 520), (1, 64, 64, 256)])
 def test_lift3d_kernels_match_plain(cuda, wt, shape):
     """K7, the plain 3D lift, on int32 volumes far beyond int16: an int16
     store between its passes would wrap here, and the plain versions
@@ -287,8 +291,8 @@ def test_lift3d_kernels_match_plain(cuda, wt, shape):
 
 
 def test_lift3d_rejects_shapes_it_cannot_take(cuda):
-    """Only the grid limits are left (lines too long for shared memory
-    are lifted in windows): C·T beyond 65535 raises, a tall frame runs."""
+    """Only the grid limits are left (frames are lifted in tiles): C·T
+    beyond 65535 raises, a tall frame runs."""
     tall = torch.zeros((1, 2, 3634, 2), dtype=torch.int32, device=cuda)
     assert _equal(lift.forward_3d(tall, WaveletType.CDF53), tall)
     many = torch.zeros((32768, 2, 2, 2), dtype=torch.int32, device=cuda)
@@ -298,12 +302,12 @@ def test_lift3d_rejects_shapes_it_cannot_take(cuda):
 
 @pytest.mark.parametrize("wt", list(WaveletType))
 @pytest.mark.parametrize("shape, scratch", [
-    ((1, 4, 3640, 32), (True, True)),     # taller than K7's column strip
-    ((1, 2, 8, 58368), (False, True))])   # wider than its row (58112)
+    ((1, 4, 3640, 32), (False, True)),    # a tall frame
+    ((1, 2, 8, 58368), (False, True))])   # a wide one
 def test_lift3d_tall_and_wide_frames_match_plain(cuda, wt, shape, scratch):
-    """K7 on frames whose columns (3632 rows) or rows (58112 columns) do
-    not fit shared memory: that pass in windows with a halo, through the
-    scratch volume (forward, inverse) where it is not the first pass."""
+    """K7 on a 3640-row and a 58368-column frame, both ordinary grids of
+    tiles (one tile column; one tile row); the scratch volume (forward,
+    inverse) only for the inverse, whose tile pass cannot run in place."""
     assert (lift._k7_scratch(shape, forward=True),
             lift._k7_scratch(shape, forward=False)) == scratch
     rng = np.random.default_rng(int(wt) + shape[2])
@@ -316,6 +320,22 @@ def test_lift3d_tall_and_wide_frames_match_plain(cuda, wt, shape, scratch):
             assert _equal(lift.inverse_3d(src, wt, exact=exact),
                           lift.inverse_3d_plain(src, wt, exact=exact))
     assert _equal(lift.inverse_3d(fwd, wt, exact=True), vol)
+
+
+def test_lift3d_raises_for_steps_of_no_filter(cuda, monkeypatch):
+    """The kernels take the three wavelets' steps only (the filter is a
+    template argument): other steps make the library refuse the launch,
+    and the wrapper raises without counting it."""
+    vol = torch.zeros((1, 64, 64, 256), dtype=torch.int32, device=cuda)
+    steps = lift.lift_steps(WaveletType.CDF53)
+    monkeypatch.setattr(lift, "lift_steps", lambda *a, **kw: (
+        (steps[0][0] + 1, *steps[0][1:]), *steps[1:]))
+    n = (lift.forward_3d.launches, lift.inverse_3d.launches)
+    with pytest.raises(RuntimeError, match="forward_3d: CUDA error"):
+        lift.forward_3d(vol, WaveletType.CDF53)
+    with pytest.raises(RuntimeError, match="inverse_3d: CUDA error"):
+        lift.inverse_3d(vol, WaveletType.CDF53)
+    assert (lift.forward_3d.launches, lift.inverse_3d.launches) == n
 
 
 @pytest.mark.parametrize("wt", list(WaveletType))

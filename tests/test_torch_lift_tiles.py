@@ -1,22 +1,26 @@
-"""The geometry and arithmetic the fused CUDA lift kernels (K1
-``forward_quant`` / K4 ``inverse_dequant``, ``csrc/lift.cu``) rest on,
-checked on the CPU where the kernels cannot run:
+"""The geometry and arithmetic the CUDA lift kernels (K1
+``forward_quant`` / K4 ``inverse_dequant``, K7 ``forward_3d`` /
+``inverse_3d``, ``csrc/lift.cu``) rest on, checked on the CPU where the
+kernels cannot run:
 
 * the halo claim: the spatial pass lifts each frame in windows around its
   stored tiles (``lift.tile_windows`` with ``lift.spatial_halo`` rows of
   halo), and lifting each window on its own and keeping its tile gives
   the full-frame lift — for every wavelet, forward and both inverse
-  modes, with and without the split-frame int16 store between the axes,
-  on frames smaller than one tile, ragged ones and ones whose windows the
-  kernel clamps into the frame; the full-frame lift of the largest frame
-  is held to the JAX package's (``forward_1d_inter`` /
-  ``inverse_1d_inter``);
+  modes, on frames smaller than one tile, ragged ones and ones whose
+  windows the kernel clamps into the frame: at int16 with and without
+  the split-frame int16 store between the axes (K1 / K4), and at int32
+  with values of ±2^20 and no int16 store (K7), also on a tall and a wide
+  frame; the full-frame lift of the largest frame of each is held to the
+  JAX package's (``forward_1d_inter`` / ``inverse_1d_inter``);
+* K7's two passes (the tiles, then T; T, then the tiles) give the plain
+  3D lift;
 * the per-channel reciprocal the forward temporal pass divides by
   (``lift.reciprocal``), exhaustively against ``//``;
-* the windows along one axis (``lift.axis_windows``) that the plain 3D
-  lift (K7) and the temporal passes lift lines too long for shared memory
-  in (tall frames, long chunks): each window lifted on its own gives the
-  full lift, and the shape guard takes every shape the JAX package tiles.
+* the windows of frames (``lift.axis_windows``) that the temporal passes
+  lift chunks too long for shared memory in: each window lifted on its
+  own gives the full lift, and the shape guard takes every shape the JAX
+  package tiles.
 
 ``lift.tile_windows`` is a model of the kernel's tiles, not the kernel:
 on the card ``test_torch_gpu.py::test_lift_tile_windows_match_kernel``
@@ -49,12 +53,22 @@ MODES = [None, False, True]
 #: the windows are not clamped); exactly one window; several clamped
 #: windows in both axes
 FRAMES = [(10, 14), (70, 258), (64, 256), (130, 520)]
+#: K7's frames: those, a tall one and a wide one (one row of tiles)
+FRAMES32 = FRAMES + [(3640, 32), (8, 58368)]
 
 
 def _frame(shape) -> np.ndarray:
-    """Random int16 values (the spatial pass's input in both directions)."""
+    """Random int16 values (the fused kernels' spatial input in both
+    directions)."""
     rng = np.random.default_rng(sum(shape))
     return rng.integers(-32768, 32768, size=shape, dtype=np.int16).astype(np.int32)
+
+
+def _frame32(shape) -> np.ndarray:
+    """Random int32 values of ±2^20 (K7's input; its coefficients and the
+    rdo and deep modes' planes leave int16)."""
+    rng = np.random.default_rng(sum(shape) + 32)
+    return rng.integers(-(1 << 20), 1 << 20, size=shape, dtype=np.int32)
 
 
 def _spatial(x: torch.Tensor, wt, exact, split: bool) -> torch.Tensor:
@@ -67,7 +81,7 @@ def _spatial(x: torch.Tensor, wt, exact, split: bool) -> torch.Tensor:
     return lift_axis(x, steps, axes[1])
 
 
-def _spatial_jax(x: np.ndarray, wt, exact) -> dict:
+def _spatial_jax(x: np.ndarray, wt, exact, splits=(False, True)) -> dict:
     """The JAX package's spatial pass on a 2D frame, without and with the
     int16 store between the axes: {split: frame}."""
     jwt = JW(int(wt))
@@ -80,7 +94,7 @@ def _spatial_jax(x: np.ndarray, wt, exact) -> dict:
     y = lift1(jnp.asarray(x), jwt, axis=axes[0], **kw)
     return {split: np.asarray(lift1(y.astype(jnp.int16).astype(jnp.int32)
                                     if split else y, jwt, axis=axes[1], **kw))
-            for split in (False, True)}
+            for split in splits}
 
 
 def _tiled(x: torch.Tensor, wt, exact, split: bool, halo: int) -> torch.Tensor:
@@ -113,6 +127,16 @@ def jax_frames():
     return out
 
 
+@pytest.fixture(scope="module")
+def jax_frames32():
+    """The JAX package's full-frame int32 spatial lift (no int16 store) of
+    K7's largest frame in every mode, computed once."""
+    shape = max(FRAMES32, key=lambda s: s[0] * s[1])
+    return {(shape, wt, exact): _spatial_jax(_frame32(shape), wt, exact,
+                                             (False,))[False]
+            for wt in WAVELETS for exact in MODES}
+
+
 @pytest.mark.parametrize("wt", WAVELETS)
 def test_halo_is_the_number_of_steps(wt):
     assert lift.spatial_halo(wt) == len(lift_steps(wt))
@@ -134,6 +158,50 @@ def test_tiles_reproduce_the_full_frame_lift(jax_frames, shape, wt, exact, split
                                       jax_frames[shape, wt, exact, split])
     got = _tiled(x, wt, exact, split, lift.spatial_halo(wt))
     assert torch.equal(got, full)
+
+
+@pytest.mark.parametrize("exact", MODES)
+@pytest.mark.parametrize("wt", WAVELETS)
+@pytest.mark.parametrize("shape", FRAMES32)
+def test_int32_tiles_reproduce_the_full_frame_lift(jax_frames32, shape, wt, exact):
+    """K7's spatial pass: int32 in and out, nothing stored between the
+    axes, values far beyond int16."""
+    x = torch.from_numpy(_frame32(shape))
+    full = _spatial(x, wt, exact, False)
+    if (shape, wt, exact) in jax_frames32:
+        np.testing.assert_array_equal(full.numpy(), jax_frames32[shape, wt, exact])
+    assert bool((full.abs() > 32767).any())
+    assert torch.equal(_tiled(x, wt, exact, False, lift.spatial_halo(wt)), full)
+
+
+@pytest.mark.parametrize("exact", MODES)
+@pytest.mark.parametrize("wt", WAVELETS)
+@pytest.mark.parametrize("shape", [(2, 6, 70, 260), (2, 6, 70, 264)])
+def test_k7_two_passes_reproduce_the_3d_lift(shape, wt, exact):
+    """K7's order of passes: forward, the tiles of every frame then the T
+    lift; inverse, the T lift then the tiles; against the plain 3D lift
+    (W, H, T and back).  Several tiles on each axis, ragged (W = 260) and
+    clamped into the frame (W = 264)."""
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, size=shape,
+                                      dtype=np.int32))
+    steps = lift_steps(wt, inverse=exact is not None, exact=bool(exact))
+    halo = lift.spatial_halo(wt)
+    fast = shape[2] >= lift._WIN_H and shape[3] % lift._SEG == 0
+    assert len(lift.tile_windows(*shape[2:], halo)) == 4
+    assert all((wc1 - wc0 == lift._WIN_W) == fast
+               for *_, (wc0, wc1) in lift.tile_windows(*shape[2:], halo))
+
+    def tiles(v):
+        return torch.stack([torch.stack([_tiled(f, wt, exact, False, halo)
+                                         for f in planes]) for planes in v])
+
+    if exact is None:
+        got, want = lift_axis(tiles(x), steps, -3), lift.forward_3d_plain(x, wt)
+    else:
+        got = tiles(lift_axis(x, steps, -3))
+        want = lift.inverse_3d_plain(x, wt, exact=exact)
+    assert torch.equal(got, want)
 
 
 def test_a_smaller_halo_is_not_enough():
@@ -227,18 +295,19 @@ def test_tile_windows_are_line_windows():
 @pytest.mark.skipif(not torch.cuda.is_available(),
                     reason="asks the CUDA library, which is built on the card")
 def test_pass_windows_start_where_a_line_outgrows_shared_memory():
-    """K7's column strip holds 3632 rows, its row 58112 columns and the
-    temporal columns 454 frames whole; longer lines take windows, and K7
-    a scratch volume where a windowed pass is not its first (the library
-    decides)."""
-    for shape, fwd, inv in (((3, 64, 1080, 1920), False, False),
-                            ((1, 4, 3632, 32), False, False),
-                            ((1, 4, 3634, 32), True, True),
-                            ((3, 16, 4320, 7680), True, True),
-                            ((1, 2, 8, 58112), False, False),
+    """The temporal columns hold 454 frames whole; longer chunks take
+    windows of frames, and K7's forward a scratch volume there (its
+    temporal pass then cannot run in place); K7's inverse always takes
+    one, since its tile pass cannot run in place (the library decides).
+    Frames of any height and width are grids of tiles and need none."""
+    for shape, fwd, inv in (((3, 64, 1080, 1920), False, True),
+                            ((1, 4, 3632, 32), False, True),
+                            ((1, 4, 3634, 32), False, True),
+                            ((3, 16, 4320, 7680), False, True),
+                            ((1, 2, 8, 58112), False, True),
                             ((1, 2, 8, 58368), False, True),
-                            ((3, 454, 64, 64), False, False),
-                            ((3, 456, 64, 64), True, False)):
+                            ((3, 454, 64, 64), False, True),
+                            ((3, 456, 64, 64), True, True)):
         assert lift._k7_scratch(shape, forward=True) == fwd, shape
         assert lift._k7_scratch(shape, forward=False) == inv, shape
 

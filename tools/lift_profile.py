@@ -10,8 +10,12 @@ checked bit-exact against its plain version, timed and split by kernel
 with ``chip_smoke.py``'s own helpers (``time_ms``, ``kernel_split``: the
 numbers are taken as phase 2 there takes them), with the wrappers' peak
 device memory above their inputs; then K7 (``forward_3d`` /
-``inverse_3d``, int32) in CDF 5/3.  The last line is one JSON object with
-every number.  Run from a checkout's root::
+``inverse_3d`` in compat and exact form, int32) in every wavelet, at that
+chunk and at the 4K check's (16×2160×3840), likewise checked, timed and
+split by kernel (the split names whatever kernels the checkout's K7
+launches), with its peak device memory above the input over one forward
+and one inverse call.  The last line is one JSON object with every
+number.  Run from a checkout's root::
 
     python3 tools/lift_profile.py [--repo DIR] [--label NAME]
 
@@ -27,7 +31,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import H, QUALITY, T, W, bound_ms, kernel_split, time_ms  # noqa: E402
+from chip_smoke import (H, H4K, QUALITY, T, T4K, W, W4K, bound_ms,  # noqa: E402
+                        kernel_split, time_ms)
 
 REPS = 10
 
@@ -101,20 +106,45 @@ def main() -> int:
                 f"{k} {v:.3f}" for k, v in r[what].items()))
         del sym
         torch.cuda.empty_cache()
-    vol32 = vol.to(torch.int32)
+    vols32 = {"1080p": vol.to(torch.int32)}
     del vol
-    wt = WaveletType.CDF53
-    c = forward_3d(vol32, wt)
-    ok = bool(torch.equal(c, forward_3d_plain(vol32, wt)))
-    ok &= bool(torch.equal(inverse_3d(c, wt, exact=True),
-                           inverse_3d_plain(c, wt, exact=True)))
-    res["K7"] = {"bit_exact": ok,
-                 "forward_3d_ms": time_ms(lambda: forward_3d(vol32, wt), REPS),
-                 "inverse_3d_ms": time_ms(
-                     lambda: inverse_3d(c, wt, exact=True), REPS)}
-    print(f"{args.label} K7 CDF53: bit-exact {ok}; forward_3d "
-          f"{res['K7']['forward_3d_ms']:.3f} ms, inverse_3d "
-          f"{res['K7']['inverse_3d_ms']:.3f} ms [{card}]")
+    rgb4k = torch.as_tensor(_test_chunk(T4K, H4K, W4K, seed=1), device=dev)
+    vols32["4k"] = pipeline._color_pad(rgb4k, (W4K, H4K, T4K), torch.int32)
+    del rgb4k
+    # the kernels a K7 call must show in its split: the temporal pass and
+    # the checkout's spatial one
+    src = (args.repo / "alice_codec_tpu_torch" / "csrc" / "lift.cu").read_text()
+    need = ("temporal_lift", "col_lift" if "col_lift" in src else "spatial_tiles")
+    for size, v32 in vols32.items():
+        res[f"k7_{size}_bound_ms"] = bound_ms(v32.numel() * 8)
+        for wt in WaveletType:
+            c = forward_3d(v32, wt)
+            ok = bool(torch.equal(c, forward_3d_plain(v32, wt)))
+            for exact in (False, True):
+                ok &= bool(torch.equal(inverse_3d(c, wt, exact=exact),
+                                       inverse_3d_plain(c, wt, exact=exact)))
+            torch.cuda.empty_cache()
+            calls = {"forward_3d": lambda: forward_3d(v32, wt),
+                     "inverse_3d": lambda: inverse_3d(c, wt),
+                     "inverse_3d_exact": lambda: inverse_3d(c, wt, exact=True)}
+            r = res[f"K7 {size} {wt.name}"] = {"bit_exact": ok}
+            for name, fn in calls.items():
+                r[name + "_ms"] = time_ms(fn, REPS)
+                r[name + "_split"] = kernel_split(fn, need)
+            del c
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            inverse_3d(forward_3d(v32, wt), wt)
+            torch.cuda.synchronize()
+            r["peak_above_input_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            print(f"{args.label} K7 {size} {wt.name}: bit-exact {ok}; "
+                  + ", ".join(f"{n} {r[n + '_ms']:.3f} ms" for n in calls)
+                  + f"; peak above the input {r['peak_above_input_gib']:.3f} GiB "
+                  f"[{card}]")
+            for name in calls:
+                print(f"  {name}_split: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in r[name + "_split"].items()))
     print(json.dumps(res))
     return 0 if all(v.get("bit_exact", True) for v in res.values()
                     if isinstance(v, dict)) else 1
