@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from .lift import forward_3d, forward_quant, inverse_3d, inverse_dequant
 from .rans3 import decode_words, encode_words
-from .rans_nway import decode_nway, encode_nway
+from .rans_nway import decode_nway, encode_nway, encode_pack_nway
 from .sparse import compact, expand
 
 __all__ = ["WRAPPERS", "reset_launches", "launch_counts"]
@@ -25,6 +25,7 @@ WRAPPERS = {
     "forward_3d": forward_3d,
     "inverse_3d": inverse_3d,
     "encode_nway": encode_nway,
+    "encode_pack_nway": encode_pack_nway,
     "decode_nway": decode_nway,
 }
 

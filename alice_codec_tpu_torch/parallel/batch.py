@@ -8,11 +8,11 @@ of ``alice_codec_tpu/parallel/batch.py``.
   symbols k, k+N, …, each lane a reference rANS stream with the
   channel's sanitized 12-bit table — on the host by the native coder
   (OpenMP over the lanes), or with ``device_entropy=True`` on the
-  device: one launch of the N-lane encode kernel over every (chunk,
-  channel) stream of the batch, a torch pack of each stream, one
-  compaction; on decode one launch of the N-lane decode kernel reading
-  the lanes straight out of the uploaded payload.  Both give the same
-  bytes.
+  device: one call of the N-lane encode-and-pack route over every
+  (chunk, channel) stream of the batch, whose kernels write the packed
+  payload themselves; on decode one launch of the N-lane decode kernel
+  reading the lanes straight out of the uploaded payload.  Both give the
+  same bytes.
 
 ALC2 container layout (little-endian)::
 
@@ -40,9 +40,8 @@ from .._device import resolve_device
 from ..core import WaveletType, padded_dims, quality_to_step
 from ..errors import InvalidBitstream, InvalidBufferSize
 from ..native import get_lib
-from ..ops.kernels.rans_nway import decode_nway
+from ..ops.kernels.rans_nway import decode_nway, encode_pack_nway
 from ..ops.rans import FrequencyTable, RansDecoder, RansEncoder, _ctypes_ptr
-from ..ops.rans_device import encode_pack_device
 from ..pipeline import ChannelHeader, as_uint8_tensor, decode_device, encode_device
 
 __all__ = [
@@ -92,13 +91,6 @@ def _no_mesh(mesh) -> None:
         raise NotImplementedError(
             "sharding a chunk batch over devices (mesh=) is not ported yet "
             "(ROADMAP Queue 1 item 11)")
-
-
-def _compact_payloads(payloads: torch.Tensor, totals) -> torch.Tensor:
-    """Concatenate each stream's front-aligned payload (``payloads``
-    (S, cap) uint8; ``totals``: the host's S byte counts) into one
-    compact buffer on the same device, fetched with one transfer."""
-    return torch.cat([payloads[i, :int(t)] for i, t in enumerate(totals)])
 
 
 @dataclass
@@ -176,10 +168,10 @@ class BatchFrameEncoder:
     entropy coding.
 
     ``device_entropy=True`` codes the lanes on ``device`` (the CUDA card
-    unless given another): on the card always through the N-lane encode
-    kernel — the JAX package's scan coder and its fallback to it have no
-    counterpart here, the kernel takes any step count — and on the CPU
-    through its plain version.  ``pallas_entropy`` is accepted for API
+    unless given another): on the card always through the N-lane
+    encode-and-pack kernels — the JAX package's scan coder and its
+    fallback to it have no counterpart here, the kernels take any step
+    count — and on the CPU through their plain version.  ``pallas_entropy`` is accepted for API
     parity and changes nothing.  ``mesh`` is not ported yet (raises).
     """
 
@@ -240,11 +232,11 @@ class BatchFrameEncoder:
                                     dtype=torch.int32).to(dev)
             cums = torch.as_tensor(np.stack([tb.cums for tb in tables]),
                                    dtype=torch.int32).to(dev)
-            pay, lens, totals = encode_pack_device(syms, freqs, cums,
-                                                   n_lanes=lanes)
+            pay, lens, totals = encode_pack_nway(syms, freqs, cums,
+                                                 n_lanes=lanes)
             lane_lens = lens.cpu().numpy().astype(np.uint32).reshape(b, 3, lanes)
             sizes = totals.cpu().tolist()
-            payload = _compact_payloads(pay, sizes).cpu().numpy().tobytes()
+            payload = pay.cpu().numpy().tobytes()
         else:
             symbols = syms.cpu().numpy()
             lib = get_lib()

@@ -62,9 +62,12 @@ Phases (any failure raises and exits non-zero before the last line):
    under torch.profiler (device time by kernel), the ``kernels`` JSON
    line and the final ``{"ok": true, ...}`` line.
 
-Phase 2 also holds the N-lane rANS kernels (K8 / K9) against their plain
-versions on every (chunk, channel) stream of that ALC2 batch plus a
-stream under a skewed table, and phase 3 decodes and re-encodes the 48
+Phase 2 also holds the N-lane rANS kernels against their plain versions
+on every (chunk, channel) stream of that ALC2 batch plus a stream under
+a skewed table — K8 in both routes (the packed payload the ALC2 path
+codes with, byte for byte against the plain encode, pack and
+concatenation; the TPU kernel's per-step layout, which no path launches)
+and K9 on the packed payload — and phase 3 decodes and re-encodes the 48
 C++ and the self `.alc` fixtures of ``tests/golden`` on the card.
 
 Needs no network and imports neither JAX nor the JAX package.
@@ -161,8 +164,9 @@ def max_abs_err(a, b) -> int:
     check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
-    if a.numel() > 1 << 28 and a.shape[0] > 1:  # int64 copies one slice at a time
-        return max(max_abs_err(x, y) for x, y in zip(a, b))
+    if a.numel() > 1 << 28:  # int64 copies one slice at a time
+        pairs = zip(a.split(1 << 26), b.split(1 << 26)) if a.ndim == 1 else zip(a, b)
+        return max(max_abs_err(x, y) for x, y in pairs)
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
@@ -201,7 +205,6 @@ def plain_kernels():
     """Route the codec's kernel calls to the plain versions (on the card)
     for the span of the block."""
     from alice_codec_tpu_torch import alc3, pipeline
-    from alice_codec_tpu_torch.ops import rans_device
     from alice_codec_tpu_torch.ops.kernels import lift, rans3, rans_nway, sparse
     from alice_codec_tpu_torch.parallel import batch
 
@@ -214,7 +217,7 @@ def plain_kernels():
         (alc3, "decode_words", rans3.decode_words_plain),
         (alc3, "compact", sparse.compact_plain),
         (alc3, "expand", sparse.expand_plain),
-        (rans_device, "encode_nway", rans_nway.encode_nway_plain),
+        (batch, "encode_pack_nway", rans_nway.encode_pack_nway_plain),
         (batch, "decode_nway", rans_nway.decode_nway_plain),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -242,14 +245,14 @@ def main() -> int:
         WaveletType, _build, native, quality_to_step)
     from alice_codec_tpu_torch import alc3, pipeline
     from alice_codec_tpu_torch.ops.kernels.rans_nway import (
-        decode_nway, decode_nway_plain, encode_nway, encode_nway_plain)
-    from alice_codec_tpu_torch.ops.rans_device import pack_device
+        decode_nway, decode_nway_plain, encode_nway, encode_nway_plain,
+        encode_pack_nway, lane_offsets, pack_streams)
     from alice_codec_tpu_torch.parallel import (
         BatchFrameDecoder, BatchFrameEncoder, EncodedChunkStream)
     from alice_codec_tpu_torch.parallel.batch import _lane_sym_count
     from alice_codec_tpu_torch.utils.golden import golden_rgb
     from alice_codec_tpu_torch.ops.kernels import (
-        launch_counts, lift, rans3, reset_launches)
+        launch_counts, lift, rans3, rans_nway, reset_launches)
     from alice_codec_tpu_torch.ops.kernels.lift import (
         forward_3d, forward_3d_plain, forward_quant, forward_quant_plain,
         inverse_3d, inverse_3d_plain, inverse_dequant, inverse_dequant_plain)
@@ -878,34 +881,34 @@ def main() -> int:
         torch.cuda.synchronize()
         return r, start.elapsed_time(end)
 
+    # K8's two routes: the per-step layout (encode_nway) and the packed
+    # payload (encode_pack_nway), against one call of the plain encode and
+    # the plain pack of its output; K9 on the packed payload
     k8 = encode_nway(syms, f_t, c_t, n_lanes=ALC2_LANES)
     p8, k8_plain_ms = events_ms(
         lambda: encode_nway_plain(syms, f_t, c_t, n_lanes=ALC2_LANES))
     err = max(max_abs_err(a, b) for a, b in zip(k8, p8))
     check(err == 0, f"encode_nway differs from its plain version by {err}")
-    pairs = int((k8[1][-1] == 2).sum().item())
+    del k8
+    pairs = int((p8[1][-1] == 2).sum().item())
     check(pairs > 0, "the skewed stream emitted no byte pairs")
+    k8p = encode_pack_nway(syms, f_t, c_t, n_lanes=ALC2_LANES)
+    pp8, pack_plain_ms = events_ms(lambda: pack_streams(*p8))
     del p8
-    parts, lens_l, tot_l = [], [], []
-    for i in range(n_str + 1):
-        pay, ln, tot = pack_device(k8[0][i], k8[1][i], k8[2][i], n=n_sym,
-                                   n_lanes=ALC2_LANES)
-        parts.append(pay[: int(tot)])
-        lens_l.append(ln)
-        tot_l.append(int(tot))
-    del k8, pay
-    payload_t = torch.cat(parts)
-    del parts
-    lens_t = torch.stack(lens_l)
-    starts_t = torch.cumsum(lens_t.long(), 1) - lens_t.long()
-    starts_t += torch.as_tensor(np.cumsum([0] + tot_l[:-1]), device=dev)[:, None]
+    err_p = max(max_abs_err(a, b) for a, b in zip(k8p, pp8))
+    check(err_p == 0, f"encode_pack_nway differs from its plain version by {err_p}")
+    del pp8
+    payload_t, lens_t, totals_t = k8p
+    del k8p
+    tot_l = totals_t.tolist()
+    starts_t = lane_offsets(lens_t).reshape(lens_t.shape)
     k9 = decode_nway(payload_t, starts_t, lens_t, f_t, c_t, lut_t, steps=steps_n)
     p9, k9_plain_ms = events_ms(lambda: decode_nway_plain(
         payload_t, starts_t, lens_t, f_t, c_t, lut_t, steps=steps_n))
     err9 = max_abs_err(k9, p9)
     check(err9 == 0, f"decode_nway differs from its plain version by {err9}")
     check(bool(torch.equal(k9.reshape(n_str + 1, -1), syms)),
-          "decode_nway does not invert encode_nway")
+          "decode_nway does not invert encode_pack_nway")
     del p9, k9
     torch.cuda.empty_cache()
     # timed on the main path's 12 streams
@@ -919,6 +922,22 @@ def main() -> int:
         plain_ms=k8_plain_ms, plain_streams=n_str + 1,
         # symbols in; two byte slots, a count per step and the states out
         bound_ms=bound_ms(n_str * n_sym * (1 + 2 + 1) + n_str * ALC2_LANES * 8))
+    # the route's two passes timed apart (CUDA events): the coder into the
+    # slabs, and the compaction with its lane-offset scan and size read
+    slabs_t = rans_nway._encode_slabs_cuda(*m8, ALC2_LANES)
+    stats["encode_pack_nway"] = dict(
+        max_abs_err=err_p,
+        ms=time_ms(lambda: encode_pack_nway(*m8, n_lanes=ALC2_LANES), 5),
+        passes_ms={
+            "encode_slabs": time_ms(
+                lambda: rans_nway._encode_slabs_cuda(*m8, ALC2_LANES), 5),
+            "compact_lanes": time_ms(lambda: rans_nway._compact_cuda(*slabs_t), 5)},
+        # the plain encode and the plain pack of its output
+        plain_ms=k8_plain_ms + pack_plain_ms, plain_pack_ms=pack_plain_ms,
+        plain_streams=n_str + 1,
+        # symbols in; the packed payload and the lane lengths out
+        bound_ms=bound_ms(n_str * n_sym + main_bytes + n_str * ALC2_LANES * 4))
+    del slabs_t
     stats["decode_nway"] = dict(
         max_abs_err=err9,
         ms=time_ms(lambda: decode_nway(*m9, steps=steps_n), 5),
@@ -929,9 +948,12 @@ def main() -> int:
           f"steps bit-exact against the plain versions (the skewed stream "
           f"{pairs} byte pairs); the {n_str} main-path streams hold "
           f"{main_bytes} payload bytes; {time.perf_counter() - t0:.1f} s "
-          f"(plain calls {k8_plain_ms / 1e3:.1f} + {k9_plain_ms / 1e3:.1f} s "
-          f"for {n_str + 1} streams) [{card}]")
-    del syms, payload_t, starts_t, lens_t, m8, m9, f_t, c_t, lut_t
+          f"(plain calls {k8_plain_ms / 1e3:.1f} + {pack_plain_ms / 1e3:.1f} + "
+          f"{k9_plain_ms / 1e3:.1f} s for {n_str + 1} streams) [{card}]")
+    print("encode_pack_nway passes: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in stats["encode_pack_nway"]["passes_ms"].items())
+        + f" [{card}]")
+    del syms, payload_t, starts_t, lens_t, totals_t, m8, m9, f_t, c_t, lut_t
     torch.cuda.empty_cache()
 
     for name, s in stats.items():
@@ -1192,9 +1214,9 @@ def main() -> int:
     launches = launch_counts()
     print(f"alc2_q90 launches: {launches}")
     check(only(launches, {"forward_quant": ALC2_CHUNKS, "inverse_3d": ALC2_CHUNKS,
-                          "encode_nway": 1, "decode_nway": 1}),
+                          "encode_pack_nway": 1, "decode_nway": 1}),
           f"alc2_q90: expected forward_quant {ALC2_CHUNKS}, inverse_3d "
-          f"{ALC2_CHUNKS}, encode_nway 1, decode_nway 1, got {launches}")
+          f"{ALC2_CHUNKS}, encode_pack_nway 1, decode_nway 1, got {launches}")
     by_path["alc2_q90"] = launches
     t0 = time.perf_counter()
     host = BatchFrameEncoder(QUALITY, "cdf53", n_lanes=ALC2_LANES).encode(batch_dev)
@@ -1261,17 +1283,30 @@ def main() -> int:
           f"{T}x{H}x{W} chunk (mean of 2, host clock, container bytes in and "
           f"out, RGB back on the host); peak memory {peak / 2**30:.3f} GiB "
           f"[{card}]")
-    for name, fn in (
+    for name, fn, need in (
             ("alc2_q90", lambda: b_dec.decode(b_enc.encode(batch_dev),
-                                              as_numpy=False)),
-            ("alc_q90", lambda: fd.decode(fe.encode(rgb, W, H, T)))):
-        wall_ms, rows = device_profile(fn)
+                                              as_numpy=False),
+             ("compact_lanes", "decode_nway")),
+            ("alc_q90", lambda: fd.decode(fe.encode(rgb, W, H, T)), ())):
+        wall_ms, rows = device_profile(fn, need)
         busy_ms = sum(r[1] for r in rows)
         print(f"{name} profile: one roundtrip {wall_ms:.3f} ms wall (profiled), "
               f"device kernel time {busy_ms:.3f} ms = "
               f"{100 * busy_ms / wall_ms:.1f} % busy [{card}]")
         for key, ms, count in rows[:16]:
             print(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+        if name == "alc2_q90":
+            # K8 (both passes), K9, the lifts and the glue around them
+            parts = {"K8 encode_slabs": ("encode_slabs",),
+                     "K8 compact_lanes": ("compact_lanes",),
+                     "K9 decode_nway": ("decode_nway",),
+                     "lifts": ("spatial_tiles", "temporal_"),
+                     "copies": ("Memcpy",), "histograms": ("Histogram",)}
+            split = {k: sum(ms for key, ms, _ in rows if any(n in key for n in v))
+                     for k, v in parts.items()}
+            split["other glue"] = busy_ms - sum(split.values())
+            print(f"{name} device time by part: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in split.items()) + f" [{card}]")
     del stream, batch_dev
     torch.cuda.empty_cache()
 
@@ -1327,6 +1362,10 @@ def main() -> int:
         # split inside their int16 one); its launches are K7's on the 4K
         # deep roundtrip of phase 2
         "row_col_lift": ("lift.cu", "alice_codec_tpu/ops/pallas/lift_kernels.py:138"),
+        # K8 in two routes: the packed payload (the ALC2 path's) and the
+        # TPU kernel's own per-step layout, which no path launches
+        "encode_pack_nway": ("rans_nway.cu",
+                             "alice_codec_tpu/ops/pallas/rans_kernel.py:125"),
         "encode_nway": ("rans_nway.cu", "alice_codec_tpu/ops/pallas/rans_kernel.py:125"),
         "decode_nway": ("rans_nway.cu",
                         "alice_codec_tpu/ops/pallas/rans_decode_kernel.py:132"),
@@ -1334,7 +1373,8 @@ def main() -> int:
     #: the path whose launches each kernel's entry reports
     main_path = {"compact": "sparse_q50", "expand": "sparse_q50",
                  "forward_3d": "deep_q100", "inverse_3d": "deep_q100",
-                 "encode_nway": "alc2_q90", "decode_nway": "alc2_q90"}
+                 "encode_nway": "alc2_q90", "encode_pack_nway": "alc2_q90",
+                 "decode_nway": "alc2_q90"}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = stats[name]
@@ -1352,7 +1392,8 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
         })
-        for extra in ("kernel_ms", "plain_streams", "ms_by_wavelet",
+        for extra in ("kernel_ms", "plain_streams", "plain_pack_ms", "passes_ms",
+                      "ms_by_wavelet",
                       "kernel_split", "planes_north_star", "ms_north_star",
                       "bound_ms_north_star"):
             if extra in s:

@@ -20,8 +20,8 @@ import torch
 
 from alice_codec_tpu_torch import (Alc3Codec, EncodedChunk, FrameDecoder,
                                    FrameEncoder, FrequencyTable, WaveletType)
-from alice_codec_tpu_torch.ops import rans_device
-from alice_codec_tpu_torch.ops.kernels import lift, rans3, rans_nway, sparse
+from alice_codec_tpu_torch.ops.kernels import (launch_counts, lift, rans3,
+                                                rans_nway, reset_launches, sparse)
 from alice_codec_tpu_torch.parallel import BatchFrameDecoder, BatchFrameEncoder
 from alice_codec_tpu_torch.utils.golden import golden_rgb
 from alice_codec_tpu_torch.ops.kernels.rans3 import NG
@@ -452,11 +452,12 @@ def test_split_frame_lift_kernels_match_plain(cuda, monkeypatch, shape):
                           lift.inverse_dequant_plain(sym, wt, 160, exact=exact))
 
 
-def _nway_streams(lanes: int, steps: int, seed: int):
-    """Three streams of ``steps`` x ``lanes`` symbols with their sanitized
-    tables: a one-symbol table (symbol 7 only in its histogram), a
-    uniform one and a skewed one (symbol 0 dominant; half the symbols
-    drawn from the rare ones, forcing two-byte emits)."""
+def _nway_streams(lanes: int, steps: int, seed: int, n_streams: int = 3):
+    """``n_streams`` streams of ``steps`` x ``lanes`` symbols with their
+    sanitized tables, cycling through a one-symbol table (symbol 7 only in
+    its histogram), a uniform one and a skewed one (symbol 0 dominant; half
+    the symbols drawn from the rare ones, forcing two-byte emits); a
+    single stream is the skewed one."""
     rng = np.random.default_rng(seed)
     n = lanes * steps
     one = np.zeros(256, np.uint32)
@@ -465,10 +466,12 @@ def _nway_streams(lanes: int, steps: int, seed: int):
     skew[0] = 1 << 20
     skew[1:40] = 1
     hists = [one, np.full(256, 5, np.uint32), skew]
-    syms = [np.where(rng.random(n) < 0.95, 7, rng.integers(0, 256, n)),
-            rng.integers(0, 256, n),
-            np.where(rng.random(n) < 0.5, 0, rng.integers(1, 256, n))]
-    tables = [FrequencyTable.from_histogram(h, sanitize=True) for h in hists]
+    kinds = [2] if n_streams == 1 else [i % 3 for i in range(n_streams)]
+    syms = [[np.where(rng.random(n) < 0.95, 7, rng.integers(0, 256, n)),
+             rng.integers(0, 256, n),
+             np.where(rng.random(n) < 0.5, 0, rng.integers(1, 256, n))][k]
+            for k in kinds]
+    tables = [FrequencyTable.from_histogram(hists[k], sanitize=True) for k in kinds]
     return np.stack(syms).astype(np.uint8), tables
 
 
@@ -479,49 +482,68 @@ def _tables(tables, dev):
     return f, c, lut
 
 
+def _spread(payload, lens, seed):
+    """The lanes of a packed payload moved apart by gaps of 0-3 bytes, so
+    that they start at every offset in a word: ``(data, starts)``."""
+    rng = np.random.default_rng(seed)
+    gaps = torch.as_tensor(rng.integers(0, 4, lens.numel()), device=lens.device)
+    flat = lens.reshape(-1).long()
+    starts = rans_nway.lane_offsets(lens) + torch.cumsum(gaps, 0)
+    lane = torch.repeat_interleave(torch.arange(flat.numel(), device=lens.device), flat)
+    pos = torch.arange(payload.numel(), device=lens.device) - (
+        rans_nway.lane_offsets(lens) - starts)[lane]
+    data = torch.zeros(int((starts + flat).max()), dtype=torch.uint8,
+                       device=lens.device)
+    data[pos] = payload
+    return data, starts.reshape(lens.shape)
+
+
+@pytest.mark.parametrize("n_streams", [1, 13])
 @pytest.mark.parametrize("steps", [1, 7, 32400])
 @pytest.mark.parametrize("lanes", [1, 33, 4096])
-def test_rans_nway_kernels_match_plain(cuda, lanes, steps):
-    """K8 and K9 against their plain versions on three streams (one-symbol,
-    uniform and skewed tables) in one launch each; K9 decodes K8's packed
-    output back to the symbols."""
-    sym_np, tables = _nway_streams(lanes, steps, lanes + steps)
+def test_rans_nway_kernels_match_plain(cuda, lanes, steps, n_streams):
+    """K8 (the packed route and the per-step layout) and K9 against their
+    plain versions, one launch each over every stream; K9 decodes K8's
+    payload back to the symbols, and decodes lanes that start 1-3 bytes
+    past a word, are cut short, are shorter than their state or empty,
+    the last one ending the payload, as the plain version does."""
+    sym_np, tables = _nway_streams(lanes, steps, lanes + steps, n_streams)
     sym = torch.as_tensor(sym_np, device=cuda)
     f, c, lut = _tables(tables, cuda)
     n = rans_nway.encode_nway.launches
     got = rans_nway.encode_nway(sym, f, c, n_lanes=lanes)
     torch.cuda.synchronize()
     assert rans_nway.encode_nway.launches == n + 1
-    want = rans_nway.encode_nway_plain(sym, f, c, n_lanes=lanes)
-    for a, b in zip(got, want):
+    plain = rans_nway.encode_nway_plain(sym, f, c, n_lanes=lanes)
+    for a, b in zip(got, plain):
         assert _equal(a, b)
+    skewed = [i for i, t in enumerate(tables) if t.freqs[0] > 3000]
     if steps == 32400 and lanes > 1:
-        assert bool((got[1][2] == 2).any())  # the skewed stream emits pairs
-    pays, lens, totals = [], [], []
-    for i in range(3):
-        pay, ln, tot = rans_device.pack_device(got[0][i], got[1][i], got[2][i],
-                                               n=lanes * steps, n_lanes=lanes)
-        pays.append(pay[:int(tot)])
-        lens.append(ln)
-        totals.append(int(tot))
-    payload = torch.cat(pays)
-    lens = torch.stack(lens)
-    starts = torch.cumsum(lens.long(), 1) - lens.long()
-    starts += torch.as_tensor(np.cumsum([0] + totals[:-1]), device=cuda)[:, None]
+        assert bool((plain[1][skewed] == 2).any())  # the skewed streams emit pairs
+    del got
+    n = rans_nway.encode_pack_nway.launches
+    packed = rans_nway.encode_pack_nway(sym, f, c, n_lanes=lanes)
+    torch.cuda.synchronize()
+    assert rans_nway.encode_pack_nway.launches == n + 1
+    for a, b in zip(packed, rans_nway.pack_streams(*plain)):
+        assert _equal(a, b)
+    del plain
+    payload, lens, _ = packed
+    starts = rans_nway.lane_offsets(lens).reshape(lens.shape)
     n = rans_nway.decode_nway.launches
     out = rans_nway.decode_nway(payload, starts, lens, f, c, lut, steps=steps)
     torch.cuda.synchronize()
     assert rans_nway.decode_nway.launches == n + 1
-    assert _equal(out, rans_nway.decode_nway_plain(payload, starts, lens, f, c,
-                                                    lut, steps=steps))
-    assert _equal(out.reshape(3, -1), sym)
-    # lanes cut short (one shorter than its state): reads stop at each
-    # lane's end, as in the plain version
+    assert _equal(out.reshape(n_streams, -1), sym)
+    data, starts = _spread(payload, lens, steps)
     cut = lens.clone()
-    cut[1, 0] = 3
-    cut[2, -1] = 5
-    assert _equal(rans_nway.decode_nway(payload, starts, cut, f, c, lut, steps=steps),
-                  rans_nway.decode_nway_plain(payload, starts, cut, f, c, lut,
+    cut[0, 0] = 3
+    cut[-1, 0] = 0
+    cut[n_streams // 2, -1] = 9
+    cut[-1, -1] = 2
+    data = data[: int(starts[-1, -1]) + 2]
+    assert _equal(rans_nway.decode_nway(data, starts, cut, f, c, lut, steps=steps),
+                  rans_nway.decode_nway_plain(data, starts, cut, f, c, lut,
                                               steps=steps))
 
 
@@ -532,6 +554,10 @@ def test_rans_nway_kernels_reject_bad_shapes(cuda):
         rans_nway.encode_nway(sym, f, f, n_lanes=7)
     with pytest.raises(ValueError, match="expected"):
         rans_nway.encode_nway(sym, f[:1], f[:1], n_lanes=5)
+    with pytest.raises(ValueError, match="multiple"):
+        rans_nway.encode_pack_nway(sym, f, f, n_lanes=7)
+    with pytest.raises(ValueError, match="expected"):
+        rans_nway.encode_pack_nway(sym, f[:1], f[:1], n_lanes=5)
 
 
 def _golden_records(kind: str):
@@ -557,14 +583,18 @@ def test_alc_goldens_on_card(cuda, kind):
 
 def test_alc2_full_width_device_entropy_matches_host(cuda):
     """One 64x1080x1920 chunk at 4096 lanes: the device-entropy ALC2
-    payload (K8 + the torch pack) equals the host native coder's, and
-    each decoder decodes the other's to the same RGB."""
+    payload (K8's packed route, one call) equals the host native coder's,
+    and each decoder decodes the other's to the same RGB."""
     import bench
 
     batch = bench._test_chunk(64, 1080, 1920)[None]
     dev = BatchFrameEncoder(90, "cdf53", n_lanes=4096, device_entropy=True)
     host = BatchFrameEncoder(90, "cdf53", n_lanes=4096)
-    s_dev, s_host = dev.encode(batch), host.encode(batch)
+    reset_launches()
+    s_dev = dev.encode(batch)
+    assert launch_counts()["encode_pack_nway"] == 1
+    assert launch_counts()["encode_nway"] == 0
+    s_host = host.encode(batch)
     assert s_dev.to_bytes() == s_host.to_bytes()
     out_dev = BatchFrameDecoder(device_entropy=True).decode(s_host, as_numpy=False)
     out_host = BatchFrameDecoder().decode(s_dev, as_numpy=False)

@@ -166,9 +166,9 @@ def test_nway_streams_decode_side_by_side():
     f = torch.from_numpy(np.stack([t.freqs for t in tables]).astype(np.int32))
     c = torch.from_numpy(np.stack([t.cums for t in tables]).astype(np.int32))
     lut = torch.from_numpy(np.stack([t.cum_to_sym for t in tables]))
-    pay, lens, totals = rans_device.encode_pack_device(
+    payload, lens, totals = rans_device.encode_pack_device(
         torch.from_numpy(sym), f, c, n_lanes=lanes)
-    payload = torch.cat([pay[i, : int(totals[i])] for i in range(3)])
+    assert payload.numel() == int(totals.sum())
     starts = torch.cumsum(lens.long(), 1) - lens.long()
     starts += torch.cumsum(totals, 0)[:, None] - totals[:, None]
     out = rans_device.decode_device_nway(payload, starts, lens, f, c, lut,
@@ -182,7 +182,8 @@ def test_nway_streams_decode_side_by_side():
             rans._ctypes_ptr(sym[i]), sym.shape[1], lanes,
             rans._ctypes_ptr(t.freqs), rans._ctypes_ptr(t.cums),
             rans._ctypes_ptr(nat), rans._ctypes_ptr(nat_lens))
-        assert nat[:total].tobytes() == pay[i, : int(totals[i])].numpy().tobytes()
+        s0 = int(starts[i, 0])
+        assert nat[:total].tobytes() == payload[s0: s0 + total].numpy().tobytes()
         np.testing.assert_array_equal(nat_lens, lens[i].numpy())
     cut = lens.clone()
     cut[1, 2] = 3  # shorter than its 4-byte state
