@@ -242,32 +242,25 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
     values = dict(zip(coded, parts[len(coded):]))
     bm_parts = {}
     if sp:
-        sym_sp, trows_sp = symbols, trows
-        if len(sp) < npv:
-            pick = torch.tensor(sp, device=dev)
-            sym_sp, trows_sp = symbols[pick], trows[pick]
-        bm, vals = compact(sym_sp, trows_sp, tuple(krs[c] for c in sp))
-        row = 0
-        for i, c in enumerate(sp):
-            values[c].copy_(vals[row : row + krs[c]].reshape(-1))
-            bm_parts[c] = bm[i]
-            bm_seg[c][: pp // 8].copy_(bm[i])
-            bm_seg[c][pp // 8 :].zero_()
-            row += krs[c]
+        # the compact kernel reads the sparse planes where phase 1 left
+        # them and writes their bitmap and value segments into buf
+        compact(symbols, trows, tuple(krs[c] for c in sp), pick=sp,
+                out=([bm_seg[c] for c in sp], [values[c] for c in sp]))
+        for c in sp:
+            bm_parts[c] = bm_seg[c][: pp // 8]
     for c in dense:
         values[c][:pp].copy_(symbols[c])
         values[c][pp:].zero_()
         bm_parts[c] = torch.full((pp // 8,), 255, dtype=torch.uint8, device=dev)
         bm_seg[c].zero_()
-    zero_bm = torch.zeros((pp // 8,), dtype=torch.uint8, device=dev)
-    bitmaps = torch.stack([bm_parts.get(c, zero_bm) for c in range(npv)])
-    bm_hists = _covered_hist(_histograms(bitmaps, HIST_STRIDE),
-                             bitmaps)
-    # an elided plane's bitmap histogram is all mass at 0; its value plane
-    # has no symbols
+    # an elided plane's bitmap histogram is all mass at 0 (that of its
+    # all-zero bitmap); its value plane has no symbols
     zero_bm_hist = torch.zeros(256, dtype=torch.int64, device=dev)
     zero_bm_hist[0] = _sampled_len(pp // 8)
     zero_v_hist = torch.zeros(256, dtype=torch.int64, device=dev)
+    bm_hists = [_covered_hist(_histograms(bm_parts[c][None], HIST_STRIDE),
+                              bm_parts[c][None])[0]
+                if c in bm_parts else zero_bm_hist for c in range(npv)]
     pos = {w: i for i, w in enumerate(wire_active)}
     rows = [bm_hists[pos[w]] if w in pos else zero_bm_hist
             for w in range(wire_nc)]
@@ -317,25 +310,25 @@ def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
         streams, counts, freqs, cums, s_seg=s_seg,
         planes=[nb] * na + [kcaps[c] // (s_seg * NG) for c in coded]
     ).view(-1)
-    planes = {}
-    parts = []
+    out = torch.empty((nc, p), dtype=torch.uint8, device=dev)
+    values = {}
     off = na * mb
     for c in coded:
-        v = flat[off : off + kcaps[c]]
+        values[c] = flat[off : off + kcaps[c]]
         off += kcaps[c]
+    for c in range(nc):
         if c in dense:
-            planes[c] = v[:p]
-        else:
-            parts.append(v.view(-1, NG))
+            out[c].copy_(values[c][:p])
+        elif c not in coded:
+            out[c].zero_()
     if sp:
-        bm = torch.stack([flat[i * mb : i * mb + pp // 8]
-                          for i, c in enumerate(coded) if c in sp])
-        sym_sp = expand(bm, torch.cat(parts),
-                        tuple(kcaps[c] // NG for c in sp))
-        for i, c in enumerate(sp):
-            planes[c] = sym_sp[i, :p]
-    zero = torch.zeros((p,), dtype=torch.uint8, device=dev)
-    return torch.stack([planes.get(c, zero) for c in range(nc)])
+        # the expand kernel reads each sparse plane's bitmap and values
+        # out of the decoded segments and writes its row of out
+        expand([flat[i * mb : i * mb + pp // 8]
+                for i, c in enumerate(coded) if c in sp],
+               [values[c] for c in sp], tuple(kcaps[c] // NG for c in sp),
+               out=[out[c] for c in sp])
+    return out
 
 
 def _bands_sparse_phase15(coeffs, steps8, dzs8, *, padded, pp: int):

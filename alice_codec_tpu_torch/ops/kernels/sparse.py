@@ -17,7 +17,7 @@ after each plane and leave the rows past a plane's used rows
 unspecified; the port needs no margin and writes those rows as zeros,
 which the JAX caller masks them to, so the wire is the same.
 
-* :func:`compact` — (nc, P) symbols → (bitmaps, values).  A value that
+* :func:`compact` — (n, P) symbols → (bitmaps, values).  A value that
   would land at or past its plane's capacity is dropped (the codec sizes
   capacities from the row counts first, so this never happens there).
 * :func:`expand` — the inverse.  A read at or past a plane's capacity
@@ -27,14 +27,21 @@ which the JAX caller masks them to, so the wire is the same.
   block whose unclamped base reaches the capacity reads only zeros
   either way.
 
+Both also work in place on the codec's wire buffers: ``compact`` reads
+the planes ``pick`` of its symbols and writes each one's bitmap and
+values into views it is given (``out``); ``expand`` reads bitmaps and
+values from views and writes the first symbols of each plane into views.
+
 As in ``ops/kernels/lift.py``, each wrapper takes its plain PyTorch
-version for a CPU tensor and launches the Hopper kernel
-(``csrc/sparse.cu``) for a CUDA tensor, counting launches in
-``launches``.  The prepass stays in PyTorch, as the JAX package keeps it
-in XLA: a tile's values start at the exclusive prefix of the tiles'
-value rows.  Compact takes those rows (:func:`tile_rows`) from the
-codec's phase 1, which counted them to size the capacities; expand
-counts them from the bitmaps.
+version for a CPU tensor and launches the Hopper kernels
+(``csrc/sparse.cu``) for a CUDA tensor, counting one launch a call in
+``launches``.  A tile's values start at the exclusive prefix of the
+tiles' value rows, counted by compact from phase 1's :func:`tile_rows`
+and by expand from the bitmaps.  The plain versions take that prefix in
+torch, as the JAX package does in XLA; on the card it is a
+reduce-then-scan over groups of ``GROUP_TILES`` tiles, two small kernels
+before the main one, so a CUDA call runs these three kernels and no
+torch op.
 """
 
 from __future__ import annotations
@@ -46,8 +53,9 @@ import torch
 from ... import _build
 from .rans3 import NG
 
-__all__ = ["BLOCK_ROWS", "TILE_ROWS", "DEFAULT_V_BLK", "tile_rows",
-           "compact", "expand", "compact_plain", "expand_plain"]
+__all__ = ["BLOCK_ROWS", "TILE_ROWS", "DEFAULT_V_BLK", "GROUP_TILES",
+           "TAIL_BYTES", "tile_rows", "group_grid", "compact", "expand",
+           "compact_plain", "expand_plain"]
 
 #: pixel rows per block of the TPU kernels.  The CUDA kernels do not
 #: batch by it; it is wire-visible only through alc3._sparse_pp.
@@ -57,6 +65,12 @@ TILE_ROWS = 8
 #: blocks per TPU kernel slot.  Wire-visible through alc3._sparse_pp,
 #: which pads a plane to a whole number of DEFAULT_V_BLK blocks.
 DEFAULT_V_BLK = 16
+#: tiles one CUDA block takes, one group of the scan of the tile bases
+#: (``csrc/sparse.cu`` GROUP).
+GROUP_TILES = 32
+#: bytes one tail block of the compact kernel zeroes (``csrc/sparse.cu``
+#: TAIL_BYTES).
+TAIL_BYTES = 32768
 
 _TILE = TILE_ROWS * NG
 _MAX_PLANES = 16  # csrc/sparse.cu MAX_PLANES
@@ -82,6 +96,21 @@ def tile_rows(symbols: torch.Tensor) -> torch.Tensor:
     nc, p = symbols.shape
     return _ceil_rows((symbols.reshape(nc, p // _TILE, _TILE) != 0).sum(
         -1, dtype=torch.int32))
+
+
+def group_grid(tiles: int, krs, bm_lens=None) -> tuple[int, int]:
+    """The kernels' launch geometry for planes of ``tiles`` tiles:
+    ``(ng, nz)`` — tile groups a plane (a block each, and a word of the
+    group scan) and, for compact, tail blocks a plane, each zeroing a
+    ``TAIL_BYTES`` slice of a plane's value rows past its used rows (up
+    to ``krs[c]`` rows) and of its bitmap segment past its bitmap
+    (``bm_lens[c]`` bytes; default: the bitmap alone).  Compact's grid is
+    ``len(krs) · (ng + nz)`` blocks, tile groups first."""
+    ng = -(-tiles // GROUP_TILES)
+    bm_lens = bm_lens or [tiles * NG] * len(krs)
+    nz = max([0] + [-(-k * NG // TAIL_BYTES) for k in krs]
+             + [-(-(b - tiles * NG) // TAIL_BYTES) for b in bm_lens])
+    return ng, nz
 
 
 def _popcount8(x: torch.Tensor) -> torch.Tensor:
@@ -125,15 +154,57 @@ def _check_trows(trows: torch.Tensor, symbols: torch.Tensor) -> None:
                          f"{tuple(trows.shape)} {trows.dtype}")
 
 
+def _check_values(values: torch.Tensor, krs) -> None:
+    want = (sum(krs), NG)
+    if values.dtype != torch.uint8 or tuple(values.shape) != want:
+        raise ValueError(f"values must be {want} uint8, got "
+                         f"{tuple(values.shape)} {values.dtype}")
+
+
+def _check_views(views, n: int, what: str, sizes, *, at_least=False) -> list:
+    """``views``: a sequence of ``n`` 1-D contiguous uint8 tensors of
+    ``sizes[i]`` bytes (at least, with ``at_least``)."""
+    views = list(views)
+    if len(views) != n:
+        raise ValueError(f"{len(views)} {what} views for {n} planes")
+    for v, size in zip(views, sizes):
+        if (v.dtype != torch.uint8 or v.ndim != 1 or not v.is_contiguous()
+                or (v.numel() < size if at_least else v.numel() != size)):
+            raise ValueError(
+                f"a {what} view must be {'≥ ' if at_least else ''}{size} "
+                f"contiguous uint8 bytes, got {tuple(v.shape)} {v.dtype}")
+    return views
+
+
+def _pick(symbols: torch.Tensor, pick) -> tuple[int, ...]:
+    n = symbols.shape[0]
+    pick = tuple(range(n)) if pick is None else tuple(int(i) for i in pick)
+    if not pick or any(not 0 <= i < n for i in pick):
+        raise ValueError(f"plane selection {pick} of {n} planes")
+    return pick
+
+
 # ── plain versions ──────────────────────────────────────────────
 
 
-def compact_plain(symbols: torch.Tensor, trows: torch.Tensor, krs):
-    """Plain PyTorch compact, vectorised over every tile at once: (nc, P)
-    uint8 symbols and their :func:`tile_rows` → ``(bitmaps (nc, P/8)
-    uint8, values (sum(krs), 128) uint8)``."""
+def compact_plain(symbols: torch.Tensor, trows: torch.Tensor, krs, *,
+                  pick=None, out=None):
+    """Plain PyTorch compact, vectorised over every tile at once.
+
+    ``symbols``: (n, P) uint8; ``trows``: their :func:`tile_rows`;
+    ``pick``: the planes to code (default all); ``krs``:
+    value capacity rows (int, or one per picked plane).  Returns
+    ``(bitmaps (len(pick), P/8) uint8, values (sum(krs), 128) uint8)``;
+    with ``out = (bitmap views, value views)``, one 1-D view per picked
+    plane — its bitmap segment of at least P/8 bytes (zeroed past P/8) and
+    its ``krs[i]·128`` value bytes — writes them instead and returns
+    ``out``."""
     _check_planes(symbols, "symbols", _TILE)
     _check_trows(trows, symbols)
+    pick = _pick(symbols, pick)
+    if pick != tuple(range(symbols.shape[0])):
+        index = torch.tensor(pick, device=symbols.device)
+        symbols, trows = symbols[index], trows[index]
     nc, p = symbols.shape
     krs = _norm_krs(krs, nc)
     dev = symbols.device
@@ -151,17 +222,68 @@ def compact_plain(symbols: torch.Tensor, trows: torch.Tensor, krs):
     values = torch.zeros(sum(krs) * NG, dtype=torch.uint8, device=dev)
     index = dest + row0.view(nc, 1, 1) * NG
     values[index[keep]] = symbols.reshape(nc, p // _TILE, _TILE)[keep]
-    return bitmaps, values.reshape(sum(krs), NG)
+    values = values.reshape(sum(krs), NG)
+    if out is None:
+        return bitmaps, values
+    bm_out, val_out = _compact_views(out, nc, p, krs)
+    for i, (bm, vals) in enumerate(zip(bm_out, val_out)):
+        bm[: p // 8].copy_(bitmaps[i])
+        bm[p // 8 :].zero_()
+        vals.copy_(values[row0[i] : row0[i] + krs[i]].reshape(-1))
+    return out
 
 
-def expand_plain(bitmaps: torch.Tensor, values: torch.Tensor,
-                 krs) -> torch.Tensor:
-    """Plain PyTorch expand: (nc, P/8) bitmaps + (sum(krs), 128) values →
-    (nc, P) uint8 symbols."""
-    _check_planes(bitmaps, "bitmaps", NG)
-    nc, p8 = bitmaps.shape
+def _compact_views(out, nc: int, p: int, krs):
+    if len(out) != 2:
+        raise ValueError("out must be (bitmap views, value views)")
+    return (_check_views(out[0], nc, "bitmap", [p // 8] * nc, at_least=True),
+            _check_views(out[1], nc, "values", [k * NG for k in krs]))
+
+
+def _expand_inputs(bitmaps, values, krs):
+    """(bitmaps, values) as a tensor each, or as per-plane views →
+    ``(nc, P/8, krs, bitmap views or None, value views or None)``."""
+    if isinstance(bitmaps, torch.Tensor):
+        _check_planes(bitmaps, "bitmaps", NG)
+        nc, p8 = bitmaps.shape
+        bm_views = None
+    else:
+        bm_views = list(bitmaps)
+        nc = len(bm_views)
+        p8 = bm_views[0].numel() if nc else 0
+        if not nc or p8 % NG:
+            raise ValueError(f"bitmap views of {p8} bytes (whole tiles of {NG})")
+        bm_views = _check_views(bm_views, nc, "bitmap", [p8] * nc)
     krs = _norm_krs(krs, nc)
-    _check_values(values, krs)
+    if isinstance(values, torch.Tensor):
+        _check_values(values, krs)
+        val_views = None
+    else:
+        val_views = _check_views(values, nc, "values", [k * NG for k in krs])
+    return nc, p8, krs, bm_views, val_views
+
+
+def _check_out(out, nc: int, p: int) -> tuple[list, int]:
+    """Output views of the expand: one per plane, equal lengths ≤ P."""
+    out = list(out)
+    n = out[0].numel() if out else 0
+    out = _check_views(out, nc, "output", [n] * nc)
+    if n > p:
+        raise ValueError(f"output views of {n} symbols for planes of {p}")
+    return out, n
+
+
+def expand_plain(bitmaps, values, krs, *, out=None):
+    """Plain PyTorch expand: (nc, P/8) bitmaps + (sum(krs), 128) values →
+    (nc, P) uint8 symbols.  Either input may instead be a sequence of nc
+    1-D views (P/8 bytes; ``krs[i]·128`` bytes); with ``out``, a sequence
+    of nc 1-D views of n ≤ P bytes, each receives the first n symbols of
+    its plane, and ``out`` is returned."""
+    nc, p8, krs, bm_views, val_views = _expand_inputs(bitmaps, values, krs)
+    if bm_views is not None:
+        bitmaps = torch.stack(bm_views)
+    if val_views is not None:
+        values = torch.cat(val_views).reshape(-1, NG)
     dev = bitmaps.device
     shifts = torch.arange(TILE_ROWS, dtype=torch.uint8, device=dev)
     bits = ((bitmaps.reshape(nc, p8 // NG, 1, NG) >> shifts.view(1, 1, -1, 1))
@@ -173,17 +295,16 @@ def expand_plain(bitmaps: torch.Tensor, values: torch.Tensor,
     ok = (bits == 1) & (row < kr)
     flat = values.reshape(-1)
     if flat.numel() == 0:
-        return torch.zeros((nc, p8 * 8), dtype=torch.uint8, device=dev)
-    index = ((row0 + row) * NG + (rank & (NG - 1))).clamp(0, flat.numel() - 1)
-    out = torch.where(ok, flat[index], 0).to(torch.uint8)
-    return out.reshape(nc, p8 * 8)
-
-
-def _check_values(values: torch.Tensor, krs) -> None:
-    want = (sum(krs), NG)
-    if values.dtype != torch.uint8 or tuple(values.shape) != want:
-        raise ValueError(f"values must be {want} uint8, got "
-                         f"{tuple(values.shape)} {values.dtype}")
+        sym = torch.zeros((nc, p8 * 8), dtype=torch.uint8, device=dev)
+    else:
+        index = ((row0 + row) * NG + (rank & (NG - 1))).clamp(0, flat.numel() - 1)
+        sym = torch.where(ok, flat[index], 0).to(torch.uint8).reshape(nc, p8 * 8)
+    if out is None:
+        return sym
+    out, n = _check_out(out, nc, p8 * 8)
+    for i, o in enumerate(out):
+        o.copy_(sym[i, :n])
+    return out
 
 
 # ── CUDA launches ───────────────────────────────────────────────
@@ -193,85 +314,142 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("sparse")
     if not getattr(lib, "_alc_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.alc_sparse_compact, lib.alc_sparse_expand):
-            fn.argtypes = [p, p, p, p, i, ll, p, p, p]
-            fn.restype = i
+        lib.alc_sparse_compact.argtypes = [i, ll, i, i, p, p, p, p, p, p, p, p]
+        lib.alc_sparse_expand.argtypes = [i, ll, i, ll, p, p, p, p, p, p]
+        lib.alc_sparse_compact.restype = lib.alc_sparse_expand.restype = i
         lib._alc_typed = True
     return lib
 
 
-def _plane_args(krs):
-    n = len(krs)
-    if not 1 <= n <= _MAX_PLANES:
-        raise ValueError(f"{n} planes (the kernels take 1..{_MAX_PLANES})")
-    kr = (ctypes.c_longlong * n)(*krs)
-    row0 = (ctypes.c_longlong * n)(*_row0(krs))
-    return kr, row0
+def _addrs(views) -> ctypes.Array:
+    return (ctypes.c_longlong * len(views))(*[v.data_ptr() for v in views])
 
 
-def _grid(nc: int, tiles: int) -> None:
-    if nc * tiles >= 2**31:
-        raise ValueError(f"{nc * tiles} tiles exceed the grid limit")
+def _check_device(views, dev: torch.device, what: str) -> None:
+    for v in views:
+        if v.device != dev:
+            raise ValueError(f"{what} on {v.device}, not {dev}")
+        if v.data_ptr() % 16:
+            raise ValueError(f"{what} not 16-byte aligned")
 
 
-def compact(symbols: torch.Tensor, trows: torch.Tensor, krs):
-    """Sparse compact: (nc, P) uint8 symbols → ``(bitmaps (nc, P/8)
-    uint8, values (sum(krs), 128) uint8)``.  ``trows``: the symbols'
-    :func:`tile_rows` (phase 1 has them); ``krs``: value capacity rows
-    (int, or one per plane)."""
+def _check_count(nc: int, tiles: int, ng: int, nz: int = 0) -> None:
+    if not 1 <= nc <= _MAX_PLANES:
+        raise ValueError(f"{nc} planes (the kernels take 1..{_MAX_PLANES})")
+    if nc * (ng + nz) >= 2**31 or tiles * TILE_ROWS >= 2**32:
+        raise ValueError(f"{nc} planes of {tiles} tiles exceed the kernels' "
+                         "grid or row limits")
+
+
+def _scratch(nc: int, ng: int, dev: torch.device) -> torch.Tensor:
+    """Words of the group scan: each group's rows, their prefix, and each
+    plane's used rows (every word written by the kernels before it is
+    read)."""
+    return torch.empty(2 * nc * ng + nc, dtype=torch.int32, device=dev)
+
+
+def compact(symbols: torch.Tensor, trows: torch.Tensor, krs, *, pick=None,
+            out=None):
+    """Sparse compact: (n, P) uint8 symbols → ``(bitmaps (len(pick), P/8)
+    uint8, values (sum(krs), 128) uint8)``, or in place into ``out``, as
+    :func:`compact_plain` says.  ``trows``: the symbols'
+    :func:`tile_rows` (phase 1 has them; the tile bases are their
+    prefix); ``krs``: value capacity rows (int, or one per picked
+    plane)."""
     _check_planes(symbols, "symbols", _TILE)
     if symbols.device.type == "cpu":
-        return compact_plain(symbols, trows, krs)
+        return compact_plain(symbols, trows, krs, pick=pick, out=out)
     if not symbols.is_cuda:
         raise ValueError(f"compact: unsupported device {symbols.device}")
     _check_trows(trows, symbols)
-    nc, p = symbols.shape
+    pick = _pick(symbols, pick)
+    nc, p = len(pick), symbols.shape[1]
     krs = _norm_krs(krs, nc)
     sym = symbols.contiguous()
     dev = sym.device
+    tr = trows.to(dev).contiguous()
     tiles = p // _TILE
-    _grid(nc, tiles)
-    base = _tile_bases(trows.to(dev))
-    bitmaps = torch.empty((nc, p // 8), dtype=torch.uint8, device=dev)
-    values = torch.zeros((sum(krs), NG), dtype=torch.uint8, device=dev)
-    if tiles:
-        kr, row0 = _plane_args(krs)
-        _build.check(_lib().alc_sparse_compact(
-            sym.data_ptr(), base.data_ptr(), bitmaps.data_ptr(),
-            values.data_ptr(), nc, tiles, ctypes.addressof(kr),
-            ctypes.addressof(row0),
-            torch.cuda.current_stream(dev).cuda_stream), "compact")
-        compact.launches += 1
-    return bitmaps, values
+    if out is None:
+        bitmaps = torch.empty((nc, p // 8), dtype=torch.uint8, device=dev)
+        values = torch.empty((sum(krs), NG), dtype=torch.uint8, device=dev)
+        flat = values.reshape(-1)
+        bm_out = list(bitmaps)
+        val_out = [flat[r * NG : (r + k) * NG] for r, k in zip(_row0(krs), krs)]
+        result = bitmaps, values
+    else:
+        bm_out, val_out = _compact_views(out, nc, p, krs)
+        result = out
+    if not tiles:
+        for v in bm_out + val_out:
+            v.zero_()
+        return result
+    bm_lens = [b.numel() for b in bm_out]
+    if any(b % 16 for b in bm_lens):
+        raise ValueError(f"bitmap segments of {bm_lens} bytes (multiples of 16)")
+    if sym.data_ptr() % 16:
+        raise ValueError("symbols not 16-byte aligned")
+    _check_device(bm_out, dev, "a bitmap view")
+    _check_device(val_out, dev, "a values view")
+    ng, nz = group_grid(tiles, krs, bm_lens)
+    _check_count(nc, tiles, ng, nz)
+    src = (ctypes.c_longlong * nc)(*[sym.data_ptr() + i * p for i in pick])
+    rows = (ctypes.c_longlong * nc)(*[tr.data_ptr() + i * tiles * 4 for i in pick])
+    bm_len = (ctypes.c_longlong * nc)(*bm_lens)
+    kr = (ctypes.c_longlong * nc)(*krs)
+    bm_ptr, val_ptr = _addrs(bm_out), _addrs(val_out)
+    scratch = _scratch(nc, ng, dev)
+    _build.check(_lib().alc_sparse_compact(
+        nc, tiles, ng, nz, ctypes.addressof(src), ctypes.addressof(rows),
+        ctypes.addressof(bm_ptr), ctypes.addressof(bm_len),
+        ctypes.addressof(val_ptr), ctypes.addressof(kr), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "compact")
+    compact.launches += 1
+    return result
 
 
-def expand(bitmaps: torch.Tensor, values: torch.Tensor, krs) -> torch.Tensor:
+def expand(bitmaps, values, krs, *, out=None):
     """Sparse expand: (nc, P/8) uint8 bitmaps + (sum(krs), 128) uint8
-    values → (nc, P) uint8 symbols."""
-    _check_planes(bitmaps, "bitmaps", NG)
-    if bitmaps.device.type == "cpu":
-        return expand_plain(bitmaps, values, krs)
-    if not bitmaps.is_cuda:
-        raise ValueError(f"expand: unsupported device {bitmaps.device}")
-    nc, p8 = bitmaps.shape
-    krs = _norm_krs(krs, nc)
-    _check_values(values, krs)
-    bm = bitmaps.contiguous()
-    dev = bm.device
-    vals = values.to(dev).contiguous()
+    values → (nc, P) uint8 symbols, or per-plane views in and out, as
+    :func:`expand_plain` says."""
+    first = bitmaps if isinstance(bitmaps, torch.Tensor) else next(iter(bitmaps), None)
+    if first is None:
+        raise ValueError("expand: no bitmap planes")
+    if first.device.type == "cpu":
+        return expand_plain(bitmaps, values, krs, out=out)
+    if not first.is_cuda:
+        raise ValueError(f"expand: unsupported device {first.device}")
+    nc, p8, krs, bm_views, val_views = _expand_inputs(bitmaps, values, krs)
+    dev = first.device
+    if bm_views is None:
+        bm_views = list(bitmaps.contiguous())
+    if val_views is None:
+        flat = values.to(dev).contiguous().reshape(-1)
+        val_views = [flat[r * NG : (r + k) * NG] for r, k in zip(_row0(krs), krs)]
+    if out is None:
+        result = torch.empty((nc, p8 * 8), dtype=torch.uint8, device=dev)
+        out_views, n_out = list(result), p8 * 8
+    else:
+        out_views, n_out = _check_out(out, nc, p8 * 8)
+        result = out
     tiles = p8 // NG
-    _grid(nc, tiles)
-    base = _tile_bases(_tile_rows_from_bitmaps(bm))
-    out = torch.empty((nc, p8 * 8), dtype=torch.uint8, device=dev)
-    if tiles:
-        kr, row0 = _plane_args(krs)
-        _build.check(_lib().alc_sparse_expand(
-            bm.data_ptr(), vals.data_ptr(), base.data_ptr(), out.data_ptr(),
-            nc, tiles, ctypes.addressof(kr), ctypes.addressof(row0),
-            torch.cuda.current_stream(dev).cuda_stream),
-            "expand")
-        expand.launches += 1
-    return out
+    if not tiles or not n_out:
+        return result
+    _check_device(bm_views, dev, "a bitmap view")
+    _check_device(val_views, dev, "a values view")
+    for o in out_views:
+        if o.device != dev:
+            raise ValueError(f"an output view on {o.device}, not {dev}")
+    ng, _ = group_grid(tiles, krs)
+    _check_count(nc, tiles, ng)
+    kr = (ctypes.c_longlong * nc)(*krs)
+    bm_ptr, val_ptr, out_ptr = _addrs(bm_views), _addrs(val_views), _addrs(out_views)
+    scratch = _scratch(nc, ng, dev)
+    _build.check(_lib().alc_sparse_expand(
+        nc, tiles, ng, n_out, ctypes.addressof(bm_ptr), ctypes.addressof(val_ptr),
+        ctypes.addressof(out_ptr), ctypes.addressof(kr), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "expand")
+    expand.launches += 1
+    return result
 
 
 compact.launches = 0

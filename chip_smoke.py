@@ -739,16 +739,65 @@ def main() -> int:
         ms=time_ms(lambda: expand(bm_k, vals_k, krs50), 10),
         plain_ms=time_ms(lambda: expand_plain(bm_k, vals_k, krs50), 2),
         bound_ms=bound_ms(bm_k.numel() + used + out_k.numel()))
-    # the wrappers' device time split: the CUDA kernel, and the torch
-    # prepass (tile counts, prefix sums) and output allocation around it
-    for name, fn in (("compact", lambda: compact(sym50, trows50, krs50)),
-                     ("expand", lambda: expand(bm_k, vals_k, krs50))):
-        fn()
-        _, rows = device_profile(fn, need=(f"::{name}(",))
-        kernel = sum(ms for key, ms, _ in rows if f"::{name}(" in key)
-        stats[name]["kernel_ms"] = kernel
-        print(f"{name}: device time of one wrapper call {sum(r[1] for r in rows):.3f} "
-              f"ms, of it the kernel {kernel:.3f} ms [{card}]")
+    # the codec's in-place calls: the planes read where phase 1 left them,
+    # bitmaps and values written into a wire segment buffer that holds
+    # other bytes (the bitmap segments' tails and the value rows past the
+    # used ones must come back zero), the symbols into the rows of the
+    # decoded planes (p < pp)
+    _, mb50 = alc3._segment_geometry(pp // 8, alc3.DEFAULT_S_SEG)
+    sizes = [mb50, mb50] + [k * NG for k in krs50]
+    seg_k = torch.full((sum(sizes),), 0xA5, dtype=torch.uint8, device=dev)
+    seg_p = torch.full_like(seg_k, 0x5A)
+    views_k, views_p = torch.split(seg_k, sizes), torch.split(seg_p, sizes)
+    out_ip = (list(views_k[:2]), list(views_k[2:]))
+    compact(sym50, trows50, krs50, pick=(0, 1), out=out_ip)
+    compact_plain(sym50, trows50, krs50, pick=(0, 1),
+                  out=(list(views_p[:2]), list(views_p[2:])))
+    err = max_abs_err(seg_k, seg_p)
+    check(err == 0, f"compact in place differs from its plain version by {err}")
+    bm_ip = [v[: pp // 8] for v in views_k[:2]]
+    dec_k = torch.full((3, p), 0xC3, dtype=torch.uint8, device=dev)
+    dec_p = torch.full_like(dec_k, 0xC3)
+    expand(bm_ip, out_ip[1], krs50, out=[dec_k[1], dec_k[2]])
+    expand_plain(bm_ip, out_ip[1], krs50, out=[dec_p[1], dec_p[2]])
+    err = max_abs_err(dec_k, dec_p)
+    check(err == 0 and bool(torch.equal(dec_k[1:], sym50[:, :p])),
+          f"expand in place differs from its plain version by {err}")
+    del seg_p, dec_p
+    stats["compact"]["ms_in_place"] = time_ms(
+        lambda: compact(sym50, trows50, krs50, pick=(0, 1), out=out_ip), 10)
+    stats["expand"]["ms_in_place"] = time_ms(
+        lambda: expand(bm_ip, out_ip[1], krs50, out=[dec_k[1], dec_k[2]]), 10)
+    print(f"sparse in place: 2 planes into a {sum(sizes)}-byte segment buffer "
+          f"and back into rows of {p} symbols, bit-exact; compact "
+          f"{stats['compact']['ms_in_place']:.3f} ms, expand "
+          f"{stats['expand']['ms_in_place']:.3f} ms [{card}]")
+    # a wrapper call on the card is its kernels (the group scan of the
+    # tile bases, then the kernel) and nothing else: no torch prepass
+    # (tile counts, prefix sums) and no fill of the values buffer
+    ours = ("::group_rows(", "::scan_groups(")
+    for name, calls in (
+            ("compact", (lambda: compact(sym50, trows50, krs50),
+                         lambda: compact(sym50, trows50, krs50, pick=(0, 1),
+                                         out=out_ip))),
+            ("expand", (lambda: expand(bm_k, vals_k, krs50),
+                        lambda: expand(bm_ip, out_ip[1], krs50,
+                                       out=[dec_k[1], dec_k[2]])))):
+        for fn in calls:
+            fn()
+            _, rows = device_profile(fn, need=(f"::{name}(",))
+            others = [key[:60] for key, _, _ in rows
+                      if not any(k in key for k in (f"::{name}(",) + ours)]
+            check(not others, f"a {name} wrapper call launched more than its "
+                              f"kernels: {others}")
+        split = {k.strip(":("): sum(ms for key, ms, _ in rows if k in key)
+                 for k in (f"::{name}(",) + ours}
+        stats[name]["kernel_ms"] = sum(split.values())
+        stats[name]["kernel_split"] = split
+        print(f"{name}: one wrapper call (and one in place) launches its "
+              f"kernels alone: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f" ms by torch.profiler [{card}]")
+    del seg_k, dec_k, out_ip, bm_ip, views_k
     # yardsticks, not the same function: one torch call that gathers the
     # nonzeros (no bitmap, no tile padding), and its scatter back
     mask = sym50 != 0
@@ -1345,7 +1394,8 @@ def main() -> int:
         for key, ms, count in rows[:14]:
             print(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
         for key, ms, count in rows[14:]:
-            if "::compact(" in key or "::expand(" in key:
+            if any(k in key for k in ("::compact(", "::expand(", "::group_rows(",
+                                      "::scan_groups(")):
                 print(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
 
     sources = {
@@ -1392,7 +1442,8 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
         })
-        for extra in ("kernel_ms", "plain_streams", "plain_pack_ms", "passes_ms",
+        for extra in ("kernel_ms", "ms_in_place", "plain_streams", "plain_pack_ms",
+                      "passes_ms",
                       "ms_by_wavelet",
                       "kernel_split", "planes_north_star", "ms_north_star",
                       "bound_ms_north_star"):

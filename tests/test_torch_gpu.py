@@ -237,6 +237,115 @@ def test_expand_hostile_bitmap_matches_plain(cuda):
     assert _equal(got, sparse.expand_plain(bm, vals, krs))
 
 
+def _sparse_planes(rng, nc: int, p: int, density: float) -> np.ndarray:
+    """(nc, p) uint8 symbols, plane i nonzero at density·(i+1)/nc, in
+    bursts: runs of tiles at 4× the density and runs of empty tiles."""
+    dens = np.repeat(rng.choice([0.0, 1.0, 4.0], p // 1024), 1024)
+    return np.stack([
+        np.where(rng.random(p) < np.minimum(1.0, density * (i + 1) / nc * dens),
+                 rng.integers(1, 256, p), 0)
+        for i in range(nc)]).astype(np.uint8)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.3, 1.0])
+@pytest.mark.parametrize("nc,tiles", [(1, 1), (2, 33), (5, 70), (16, 37)])
+def test_sparse_scan_kernels_match_plain(cuda, density, nc, tiles):
+    """Tile groups that are not whole (33, 70, 37 tiles over groups of
+    32), 1-16 planes, per-plane capacities above, at and below the rows:
+    the kernels' own row counts and chained scan against the plain
+    versions' torch prefix."""
+    rng = np.random.default_rng(nc * 100 + tiles + int(density * 10))
+    sym = torch.as_tensor(_sparse_planes(rng, nc, tiles * 1024, density),
+                          device=cuda)
+    trows = sparse.tile_rows(sym)
+    rows = trows.sum(-1).tolist()
+    for krs in (tuple(r + 3 * i for i, r in enumerate(rows)),
+                tuple(rows),
+                tuple(max(r // 2 - i, 0) for i, r in enumerate(rows))):
+        n = sparse.compact.launches
+        got = sparse.compact(sym, trows, krs)
+        assert sparse.compact.launches == n + 1
+        want = sparse.compact_plain(sym, trows, krs)
+        assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+        n = sparse.expand.launches
+        out = sparse.expand(got[0], got[1], krs)
+        torch.cuda.synchronize()
+        assert sparse.expand.launches == n + 1
+        assert _equal(out, sparse.expand_plain(got[0], got[1], krs))
+        if krs[0] >= rows[0]:
+            assert _equal(out[0], sym[0])
+
+
+@pytest.mark.parametrize("pick", [(0,), (1, 2), (0, 1, 2, 3, 4, 5), (5, 2, 3)])
+def test_sparse_in_place_matches_plain(cuda, pick):
+    """The codec's interface: planes picked out of the phase-1 symbols,
+    bitmaps and values written into one segment buffer that holds other
+    bytes (the bitmap segments' tails and the value rows past the used
+    ones come back zero), and the expand writing the first p < P symbols
+    of each plane into rows of another tensor, at an odd p."""
+    rng = np.random.default_rng(len(pick))
+    tiles = 45
+    p_full = tiles * 1024
+    sym = torch.as_tensor(_sparse_planes(rng, 6, p_full, 0.05), device=cuda)
+    trows = sparse.tile_rows(sym)
+    rows = [int(trows[i].sum()) for i in pick]
+    krs = tuple(r + 5 for r in rows)
+    mb = p_full // 8 + 4096
+    sizes = [mb] * len(pick) + [k * NG for k in krs]
+    buf = torch.full((sum(sizes),), 0xA5, dtype=torch.uint8, device=cuda)
+    parts = torch.split(buf, sizes)
+    bm_v, val_v = list(parts[: len(pick)]), list(parts[len(pick):])
+    ref = torch.full_like(buf, 0x5A)
+    ref_parts = torch.split(ref, sizes)
+    sparse.compact(sym, trows, krs, pick=pick, out=(bm_v, val_v))
+    sparse.compact_plain(sym, trows, krs, pick=pick,
+                         out=(list(ref_parts[: len(pick)]),
+                              list(ref_parts[len(pick):])))
+    assert _equal(buf, ref)
+    p = p_full - 1000 - 3
+    dec = torch.full((7, p), 0xC3, dtype=torch.uint8, device=cuda)
+    rows_out = [dec[1 + i] for i in range(len(pick))]
+    bms = [v[: p_full // 8] for v in bm_v]
+    sparse.expand(bms, val_v, krs, out=rows_out)
+    want = torch.full_like(dec, 0xC3)
+    sparse.expand_plain(bms, val_v, krs, out=[want[1 + i] for i in range(len(pick))])
+    assert _equal(dec, want)
+    assert _equal(dec[1 : 1 + len(pick)], sym[list(pick), :p])
+
+
+def test_sparse_scan_on_a_4k_chroma_plane(cuda):
+    """One 4K chroma plane (16×2160×3840, padded as the sparse wire pads
+    it): 4064 tile groups, many more than the card holds at once, so the
+    look-back waits on groups that started long before and must always
+    make progress."""
+    from alice_codec_tpu_torch import alc3
+
+    p = alc3._sparse_pp(16 * 2160 * 3840)
+    rng = np.random.default_rng(44)
+    sym = torch.as_tensor(_sparse_planes(rng, 1, p, 0.02), device=cuda)
+    trows = sparse.tile_rows(sym)
+    krs = (int(trows.sum()) + 7,)
+    bm, vals = sparse.compact(sym, trows, krs)
+    want = sparse.compact_plain(sym, trows, krs)
+    assert _equal(bm, want[0]) and _equal(vals, want[1])
+    del want
+    assert _equal(sparse.expand(bm, vals, krs), sym)
+
+
+def test_sparse_hostile_bitmaps_match_plain(cuda):
+    """Random bitmaps on 3 planes of 37 tiles (popcounts far past the
+    capacities, the last group not whole)."""
+    rng = np.random.default_rng(19)
+    bm = torch.as_tensor(rng.integers(0, 256, (3, 37 * NG), dtype=np.uint8),
+                         device=cuda)
+    for krs in ((1, 40, 300), (0, 7, 1000)):
+        vals = torch.as_tensor(rng.integers(1, 256, (sum(krs), NG), dtype=np.uint8),
+                               device=cuda)
+        got = sparse.expand(bm, vals, krs)
+        torch.cuda.synchronize()
+        assert _equal(got, sparse.expand_plain(bm, vals, krs))
+
+
 def test_sparse_goldens_on_card(cuda):
     """The JAX-written sparse goldens: each container decodes on the card
     to the JAX decode, and each input re-encodes to the same bytes
