@@ -9,9 +9,11 @@ reference-compatible single-chunk `.alc` (:class:`FrameEncoder` /
 :class:`FrameDecoder`, host rANS) and the batched ALC2
 (:mod:`.parallel`: ``BatchFrameEncoder`` / ``BatchFrameDecoder``, N-lane
 rANS on the host or the card).  Its containers are byte-identical to the
-JAX package's, and each package decodes the other's.  Not ported yet:
-``Alc3Codec.encode_batch`` / ``decode_batch``, streaming and multi-device
-sharding.
+JAX package's, and each package decodes the other's.  Batches
+(``Alc3Codec.encode_batch`` / ``decode_batch``) run one word-rANS launch
+each way over the whole batch, optionally over a chunk mesh of several
+devices (:mod:`.parallel`: ``chunk_mesh``, ``shard_batch``), and
+:mod:`.streaming` pipelines chunk streams and their `.alcs3` files.
 
 Entry points run on the CUDA card unless given ``device="cpu"``; on the
 CPU every kernel is replaced by its plain PyTorch version.
@@ -36,14 +38,24 @@ from .ops.rans import (
     SimdRansDecoder,
 )
 from .pipeline import EncodedChunk, FrameDecoder, FrameEncoder
+from .streaming import (
+    Alc3StreamReader,
+    Alc3StreamWriter,
+    decode_stream,
+    encode_stream,
+)
 
 __all__ = [
     "Alc3Codec",
+    "Alc3StreamReader",
+    "Alc3StreamWriter",
     "CodecError",
     "DEFAULT_S_SEG",
     "DeviceChunk",
+    "decode_stream",
     "DimensionOverflow",
     "EncodedChunk",
+    "encode_stream",
     "FrameDecoder",
     "FrameEncoder",
     "FrequencyTable",

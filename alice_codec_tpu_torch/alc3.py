@@ -41,14 +41,16 @@ A sparse value plane's ``num_symbols`` is its capacity ``kcap``: 0 elides
 the plane (its bitmap section then has no segments either), the full
 dense capacity marks a dense plane (its bitmap segments ship elided).
 
-``encode_batch`` / ``decode_batch`` are not ported yet and raise
-``NotImplementedError``.
+``encode_batch`` / ``decode_batch`` code B chunks of one geometry with
+one word-rANS launch each way (and one compact / expand launch where
+planes are sparse) over the whole batch, and K1 / K4 once a chunk; with a
+chunk mesh (``parallel.mesh``) each device codes its shard.
 """
 
 from __future__ import annotations
 
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -67,9 +69,11 @@ from .ops.kernels.sparse import (BLOCK_ROWS, DEFAULT_V_BLK, compact, expand,
                                  tile_rows)
 from .ops.quant import AnalyticalRDO, quantize_bands_inter, to_symbols
 from .ops.tables_device import freq_table_device
+from .parallel.mesh import gather, on_device, shard_batch
 from .pipeline import (
     ChannelHeader,
     _histograms,
+    as_uint8_tensor,
     decode_bands_device,
     decode_deep_device,
     decode_device,
@@ -183,17 +187,21 @@ def _sampled_len(n: int, stride: int = HIST_STRIDE) -> int:
     return nb * NG if nb else n
 
 
-def _entropy_encode(symbols, hists, *, s_seg: int, v_seg: int):
+def _entropy_encode(symbols, hists, *, s_seg: int, v_seg: int,
+                    p: int | None = None):
     """Dense entropy stage: (n, P) uint8 planes and their sampled
     histograms → ``(streams, counts, covered hists)``; one table per plane,
-    one encode launch for all of them."""
-    n, p = symbols.shape
+    one encode launch for all of them.  ``p``: the planes' symbols where
+    ``symbols`` already holds them zero-padded to the segment grid (a
+    batch's buffer)."""
+    n, width = symbols.shape
+    p = width if p is None else p
     hists = _covered_hist(hists, symbols)
     freqs, cums = freq_table_device(
         _table_hists(hists, p, s_seg=s_seg, v_seg=v_seg))
     n_seg, m = _segment_geometry(p, s_seg, v_seg)
-    if m != p:
-        symbols = torch.nn.functional.pad(symbols, (0, m - p))
+    if m != width:
+        symbols = torch.nn.functional.pad(symbols, (0, m - width))
     streams, counts = encode_words(
         symbols.reshape(n * n_seg, s_seg, NG), freqs, cums)
     return streams, counts, hists
@@ -210,36 +218,48 @@ def _entropy_decode(streams, counts, hists, *, padded, s_seg: int,
 
 
 def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
-                         v_b: int, wire_active, wire_nc: int = 3, dense=()):
+                         v_b: int, wire_active, wire_nc: int = 3, dense=(),
+                         chunk_planes: int | None = None):
     """Sparse phase 2: compact kernel → bitmap + value planes → one
     word-rANS encode launch for all of them.
 
     ``symbols``: (npv, pp) uint8, the provided planes (wire planes
     ``wire_active`` of the ``wire_nc``: 3 channels, or the 6 byte planes
-    of a deep chunk); ``krs``: per provided plane, its
-    value capacity in rows (``krs[i] · 128`` symbols, whole segments);
-    0 elides the plane.  ``dense``: provided planes coded dense — their
-    value section is the raw plane zero-padded to ``krs[i]`` rows (the
-    full dense capacity) and their all-ones bitmap is never coded.
+    of a deep chunk, or the 3·B channels of a batch's B chunks), or a
+    sequence of npv (pp,) planes (a batch's, where each chunk's phase 1
+    left them); ``trows``: their tile rows, likewise; ``krs``: per
+    provided plane, its value capacity in rows (``krs[i] · 128`` symbols,
+    whole segments); 0 elides the plane.  ``dense``: provided planes coded
+    dense — their value section is the raw plane zero-padded to ``krs[i]``
+    rows (the full dense capacity) and their all-ones bitmap is never
+    coded.  ``chunk_planes``: wire planes a chunk (default ``wire_nc``: one
+    chunk).
 
     Returns ``(streams, counts, hists)``: hists in the full wire layout
     (2·wire_nc, 256) — bitmap rows, then value rows, with the rows of an
-    elided plane synthesized; streams and counts of the coded planes only:
-    their bitmap segments first (elided, count 0, for dense planes), then
-    each coded plane's value segments."""
-    npv = symbols.shape[0]
-    dev = symbols.device
+    elided plane synthesized; streams and counts of the coded planes only,
+    chunk by chunk: a chunk's bitmap segments first (elided, count 0, for
+    dense planes), then each of its coded planes' value segments — so each
+    chunk's segments are one slice."""
+    planes = list(symbols)
+    npv = len(planes)
+    dev = planes[0].device
+    cp = wire_nc if chunk_planes is None else chunk_planes
     coded = tuple(i for i in range(npv) if krs[i] > 0)
     sp = tuple(c for c in coded if c not in dense)
     nb, mb = _segment_geometry(pp // 8, s_seg, v_b)
-    # every segment of the chunk in one buffer, in wire order: the coded
+    groups = [g for g in ([c for c in coded if wire_active[c] // cp == j]
+                          for j in range(wire_nc // cp)) if g]
+    # every segment in one buffer, in wire order chunk by chunk: the coded
     # planes' bitmap segments (all zero, so elided, for a dense plane),
     # then their value segments
-    sizes = [mb] * len(coded) + [krs[c] * NG for c in coded]
+    sizes = [n for g in groups for n in [mb] * len(g) + [krs[c] * NG for c in g]]
     buf = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
-    parts = torch.split(buf, sizes)
-    bm_seg = dict(zip(coded, parts[: len(coded)]))
-    values = dict(zip(coded, parts[len(coded):]))
+    parts = iter(torch.split(buf, sizes))
+    bm_seg, values = {}, {}
+    for g in groups:
+        bm_seg.update((c, next(parts)) for c in g)
+        values.update((c, next(parts)) for c in g)
     bm_parts = {}
     if sp:
         # the compact kernel reads the sparse planes where phase 1 left
@@ -249,7 +269,7 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
         for c in sp:
             bm_parts[c] = bm_seg[c][: pp // 8]
     for c in dense:
-        values[c][:pp].copy_(symbols[c])
+        values[c][:pp].copy_(planes[c])
         values[c][pp:].zero_()
         bm_parts[c] = torch.full((pp // 8,), 255, dtype=torch.uint8, device=dev)
         bm_seg[c].zero_()
@@ -276,58 +296,72 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
     # one table per segment group: each coded plane's bitmap (a dense
     # plane's segments are elided and never read theirs), then its values
     freqs, cums = freq_table_device(torch.cat([
-        _table_hists(hists[[wire_active[c] for c in coded]], pp // 8,
-                     s_seg=s_seg, v_seg=v_b),
-        hists[[wire_nc + wire_active[c] for c in coded]]]))
+        t for g in groups for t in (
+            _table_hists(hists[[wire_active[c] for c in g]], pp // 8,
+                         s_seg=s_seg, v_seg=v_b),
+            hists[[wire_nc + wire_active[c] for c in g]])]))
     streams, counts = encode_words(
         buf.view(-1, s_seg, NG), freqs, cums,
-        planes=[nb] * len(coded) + [krs[c] // s_seg for c in coded])
+        planes=[n for g in groups
+                for n in [nb] * len(g) + [krs[c] // s_seg for c in g]])
     return streams, counts, hists
 
 
 def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
-                           kcaps, v_b: int, nc: int = 3) -> torch.Tensor:
+                           kcaps, v_b: int, nc: int = 3,
+                           chunk_planes: int | None = None) -> torch.Tensor:
     """Sparse decode front half → (nc, p) uint8 symbols (nc: 3 channels,
-    or 6 byte planes when deep).  ``kcaps``: per plane, its value
-    capacity in symbols — 0 elides the plane (exact zeros), the full
-    dense capacity marks a dense plane (its value symbols are the plane;
-    its bitmap is never read).  One word-rANS decode launch covers every
-    segment."""
+    or 6 byte planes when deep, or the 3·B channels of B chunks whose
+    segments follow one another in ``streams``, ``chunk_planes`` = 3 a
+    chunk).  ``hists``: (2·nc, 256), the bitmap rows, then the value
+    rows; ``kcaps``: per plane, its value capacity in symbols — 0 elides
+    the plane (exact zeros), the full dense capacity marks a dense plane
+    (its value symbols are the plane; its bitmap is never read).  One
+    word-rANS decode launch covers every segment, one expand launch
+    every sparse plane."""
+    cp = nc if chunk_planes is None else chunk_planes
     pp = _sparse_pp(p)
     dev = streams.device
-    coded = tuple(c for c in range(nc) if kcaps[c] > 0)
-    na = len(coded)
-    if na == 0:
-        return torch.zeros((nc, p), dtype=torch.uint8, device=dev)
-    dense_kcap = _segment_geometry(pp, s_seg)[1]
-    dense = tuple(c for c in coded if kcaps[c] >= dense_kcap)
-    sp = tuple(c for c in coded if c not in dense)
-    nb, mb = _segment_geometry(pp // 8, s_seg, v_b)
-    freqs, cums = freq_table_device(torch.cat([
-        _table_hists(hists[list(coded)], pp // 8, s_seg=s_seg, v_seg=v_b),
-        hists[[nc + c for c in coded]]]))
-    flat = decode_words(
-        streams, counts, freqs, cums, s_seg=s_seg,
-        planes=[nb] * na + [kcaps[c] // (s_seg * NG) for c in coded]
-    ).view(-1)
     out = torch.empty((nc, p), dtype=torch.uint8, device=dev)
-    values = {}
-    off = na * mb
-    for c in coded:
-        values[c] = flat[off : off + kcaps[c]]
-        off += kcaps[c]
+    dense_kcap = _segment_geometry(pp, s_seg)[1]
+    nb, mb = _segment_geometry(pp // 8, s_seg, v_b)
+    # per chunk: its coded planes' bitmap segments, then their values
+    tables, planes, where = [], [], []  # where: (plane, bitmap, values)
+    off = 0
+    for j in range(nc // cp):
+        coded = [c for c in range(j * cp, (j + 1) * cp) if kcaps[c] > 0]
+        if not coded:
+            continue
+        tables += [_table_hists(hists[coded], pp // 8, s_seg=s_seg, v_seg=v_b),
+                   hists[[nc + c for c in coded]]]
+        planes += [nb] * len(coded) + [kcaps[c] // (s_seg * NG) for c in coded]
+        voff = off + len(coded) * mb
+        for i, c in enumerate(coded):
+            where.append((c, off + i * mb, voff))
+            voff += kcaps[c]
+        off = voff
+    if not where:
+        return out.zero_()
+    freqs, cums = freq_table_device(torch.cat(tables))
+    flat = decode_words(streams, counts, freqs, cums, s_seg=s_seg,
+                        planes=planes).view(-1)
+    coded = {c for c, _, _ in where}
     for c in range(nc):
-        if c in dense:
-            out[c].copy_(values[c][:p])
-        elif c not in coded:
+        if c not in coded:
             out[c].zero_()
+    sp = []
+    for c, b, v in where:
+        if kcaps[c] >= dense_kcap:
+            out[c].copy_(flat[v : v + p])
+        else:
+            sp.append((c, b, v))
     if sp:
         # the expand kernel reads each sparse plane's bitmap and values
         # out of the decoded segments and writes its row of out
-        expand([flat[i * mb : i * mb + pp // 8]
-                for i, c in enumerate(coded) if c in sp],
-               [values[c] for c in sp], tuple(kcaps[c] // NG for c in sp),
-               out=[out[c] for c in sp])
+        expand([flat[b : b + pp // 8] for _, b, _ in sp],
+               [flat[v : v + kcaps[c]] for c, _, v in sp],
+               tuple(kcaps[c] // NG for c, _, _ in sp),
+               out=[out[c] for c, _, _ in sp])
     return out
 
 
@@ -338,6 +372,84 @@ def _bands_sparse_phase15(coeffs, steps8, dzs8, *, padded, pp: int):
     symbols = to_symbols(quantize_bands_inter(coeffs, steps8, dzs8))
     symbols = torch.nn.functional.pad(symbols.reshape(3, p), (0, pp - p))
     return symbols, tile_rows(symbols)
+
+
+def _join(parts: list[torch.Tensor]) -> torch.Tensor:
+    """``torch.cat(parts)``, without the copy where the parts already lie
+    one after another in one buffer (the chunks of one ``encode_batch``
+    or one shard of it)."""
+    a = parts[0]
+    if len(parts) == 1:
+        return a
+    if all(x.is_contiguous() and x.dtype == a.dtype and x.device == a.device
+           and x.shape[1:] == a.shape[1:]
+           and x.untyped_storage().data_ptr() == a.untyped_storage().data_ptr()
+           for x in parts) and all(
+               y.data_ptr() == x.data_ptr() + x.nbytes
+               for x, y in zip(parts, parts[1:])):
+        return a.as_strided((sum(x.shape[0] for x in parts),) + a.shape[1:],
+                            a.stride(), a.storage_offset())
+    return torch.cat(parts)
+
+
+def _batch_tensor(rgb_batch, device) -> torch.Tensor:
+    """A (B, T, H, W, 3) batch, numpy or a tensor, as a uint8 tensor on
+    ``device``."""
+    x = as_uint8_tensor(rgb_batch, device)
+    if x.ndim != 5 or x.shape[-1] != 3:
+        raise InvalidBufferSize(5, x.ndim)
+    return x
+
+
+def _shards(rgb_batch, mesh) -> list[torch.Tensor]:
+    """A batch as one uint8 tensor a mesh device: given shards (placed
+    where the mesh says), or a batch split by ``shard_batch``."""
+    if isinstance(rgb_batch, (list, tuple)):
+        if len(rgb_batch) != mesh.size:
+            raise ValueError(f"{len(rgb_batch)} shards for a mesh of "
+                             f"{mesh.size} devices")
+        shards = [as_uint8_tensor(x, d) for x, d in zip(rgb_batch, mesh.devices)]
+    else:
+        if np.ndim(rgb_batch) != 5:
+            raise InvalidBufferSize(5, np.ndim(rgb_batch))
+        shards = [x.to(torch.uint8) for x in shard_batch(rgb_batch, mesh)]
+    for x in shards:
+        if x.ndim != 5 or x.shape[-1] != 3:
+            raise InvalidBufferSize(5, x.ndim)
+    return shards
+
+
+def _chunks_of(rgb_batch) -> list:
+    """The chunks of a batch (or of its shards), one by one."""
+    if isinstance(rgb_batch, (list, tuple)):
+        return [x[i] for x in rgb_batch for i in range(x.shape[0])]
+    if not isinstance(rgb_batch, torch.Tensor):
+        rgb_batch = np.asarray(rgb_batch, np.uint8)
+    if rgb_batch.ndim != 5 or rgb_batch.shape[-1] != 3:
+        raise InvalidBufferSize(5, rgb_batch.ndim)
+    return [rgb_batch[i] for i in range(rgb_batch.shape[0])]
+
+
+def _chunk_to(chunk: "DeviceChunk", dev: torch.device) -> "DeviceChunk":
+    if chunk.streams.device == dev:
+        return chunk
+    return replace(chunk, streams=chunk.streams.to(dev),
+                   counts=chunk.counts.to(dev), hists=chunk.hists.to(dev))
+
+
+def _on_mesh(fn, chunks, mesh, exact: bool) -> torch.Tensor:
+    """``fn(shard's chunks, exact)`` on every mesh device (all issued
+    before any result is gathered), gathered onto the first."""
+    if len(chunks) % mesh.size:
+        raise ValueError(f"a batch of {len(chunks)} chunks does not split "
+                         f"over {mesh.size} devices")
+    bl = len(chunks) // mesh.size
+    parts = []
+    for s, dev in enumerate(mesh.devices):
+        with on_device(dev):
+            parts.append(fn([_chunk_to(c, dev)
+                             for c in chunks[s * bl : (s + 1) * bl]], exact))
+    return gather(parts, mesh.devices[0])
 
 
 @dataclass
@@ -473,25 +585,28 @@ class Alc3Codec:
 
     # ── sparse encode ───────────────────────────────────────────
 
-    def _settle_krs(self, rows, wire_active, pp: int, wire_nc: int = 3):
+    def _settle_krs(self, rows, wire_active, pp: int, wire_nc: int = 3,
+                    chunk_planes: int | None = None):
         """Value capacity rows of the provided planes ``wire_active`` (of
-        ``wire_nc`` wire planes), given their value rows ``rows``; stores
-        them in the capacity cache.
+        ``wire_nc`` wire planes, ``chunk_planes`` of them a chunk: all, or
+        3 in a batch), given their value rows ``rows``; stores them in the
+        capacity cache.
 
         The JAX package dispatches its phase 2 optimistically with the
         cached capacities and re-dispatches with larger ones where the
         rows overflow; this is the capacity its loop settles on, and the
         cache write it makes: a cached bucket is kept while the rows fit,
         else every plane takes the larger of it and its own bucket.  A
-        plane with no rows is elided (0), except the chunk's anchor
-        plane (wire plane 0), which keeps the minimum bucket; a plane at
-        or above DENSE_ROW_FRAC of its rows is dense (the full
+        plane with no rows is elided (0), except each chunk's anchor
+        plane (its first wire plane), which keeps the minimum bucket; a
+        plane at or above DENSE_ROW_FRAC of its rows is dense (the full
         capacity)."""
+        cp = wire_nc if chunk_planes is None else chunk_planes
         max_nv = _segment_geometry(pp, self.s_seg)[0]
         dense_rows = max_nv * self.s_seg
 
         def bucket(r: int, w: int) -> int:
-            if r == 0 and w % wire_nc == 0:
+            if r == 0 and w % cp == 0:
                 return DEFAULT_V_SEG * self.s_seg
             if r >= DENSE_ROW_FRAC * (pp // NG):
                 return dense_rows
@@ -511,16 +626,18 @@ class Alc3Codec:
         return krs, dense_rows
 
     def _sparse_phase2(self, symbols, trows, pp: int, rows, wire_active,
-                       wire_nc: int = 3):
+                       wire_nc: int = 3, chunk_planes: int | None = None):
         """Capacities from the value ``rows`` (host ints), then the
         compact + entropy stage: ``(streams, counts, hists, kcaps)`` with
         kcaps in the full wire layout."""
-        krs, dense_rows = self._settle_krs(rows, wire_active, pp, wire_nc)
+        krs, dense_rows = self._settle_krs(rows, wire_active, pp, wire_nc,
+                                           chunk_planes)
         nb, _ = _segment_geometry(pp // 8, self.s_seg)
         streams, counts, hists = _encode_chunk_sparse(
             symbols, trows, pp=pp, s_seg=self.s_seg, krs=krs,
             v_b=_pick_v_seg(nb), wire_active=wire_active, wire_nc=wire_nc,
-            dense=tuple(i for i, k in enumerate(krs) if k == dense_rows))
+            dense=tuple(i for i, k in enumerate(krs) if k == dense_rows),
+            chunk_planes=chunk_planes)
         kcaps = [0] * wire_nc
         for i, w in enumerate(wire_active):
             kcaps[w] = krs[i] * NG
@@ -678,19 +795,271 @@ class Alc3Codec:
                                 active=active, interleaved=True, **stage)
         return rgb.cpu().numpy() if as_numpy else rgb
 
-    def encode_batch(self, rgb_batch, **kwargs):
-        """Not ported yet (ROADMAP Queue 1 item 11): encode each chunk
-        with :meth:`encode`."""
-        raise NotImplementedError(
-            "Alc3Codec.encode_batch is not ported yet (ROADMAP Queue 1 "
-            "item 11); encode each chunk with encode()")
+    # ── batches and chunk meshes ────────────────────────────────
 
-    def decode_batch(self, chunks, **kwargs):
-        """Not ported yet (ROADMAP Queue 1 item 11): decode each chunk
-        with :meth:`decode`."""
-        raise NotImplementedError(
-            "Alc3Codec.decode_batch is not ported yet (ROADMAP Queue 1 "
-            "item 11); decode each chunk with decode()")
+    def encode_batch(self, rgb_batch, *, mesh=None) -> list[DeviceChunk]:
+        """Encode a (B, T, H, W, 3) uint8 batch: numpy (uploaded once), a
+        tensor, or with ``mesh`` also the per-device shards of
+        :func:`~.parallel.mesh.shard_batch`.
+
+        Dense and sparse fixed-step batches run K1 once a chunk, then one
+        word-rANS encode launch (and, where planes are sparse, one compact
+        launch) over the whole batch; the containers equal per-chunk
+        :meth:`encode`'s (sparse: with the batch's own capacity caches).
+        With ``mesh`` (:func:`~.parallel.mesh.chunk_mesh`) each device
+        codes its shard and its chunks stay there: dense streams equal the
+        unsharded path's; sparse takes the mesh's capacity rule (one bucket
+        a channel from the batch maximum, no plane elided, no cache read or
+        written) and an uneven B encodes per chunk.  rdo and deep encode
+        per chunk."""
+        if self.rdo or self.deep:
+            return [self.encode(c) for c in _chunks_of(rgb_batch)]
+        if mesh is not None:
+            if self.sparse:
+                return self._encode_batch_sparse_mesh(rgb_batch, mesh)
+            out = []
+            for dev, x in zip(mesh.devices, _shards(rgb_batch, mesh)):
+                with on_device(dev):
+                    out += self._encode_batch_dense(x)
+            return out
+        x = _batch_tensor(rgb_batch, self.device)
+        if self.sparse:
+            return self._encode_batch_sparse(x)
+        return self._encode_batch_dense(x)
+
+    def _encode_batch_dense(self, x) -> list[DeviceChunk]:
+        """Dense batch on ``x``'s device: K1 once a chunk into one buffer
+        of the B·3 planes, then one encode launch over all of them; chunk
+        i owns segment rows [i·3·n_seg, (i+1)·3·n_seg)."""
+        b, t, h, w, _ = x.shape
+        padded = padded_dims_levels(w, h, t, self.levels)
+        p = int(np.prod(padded))
+        n_seg, m = _segment_geometry(p, self.s_seg)
+        buf = torch.empty((3 * b, m), dtype=torch.uint8, device=x.device)
+        hists = []
+        for i in range(b):
+            planes, hist = encode_device(
+                x[i], self.step, self.step, wavelet_type=self.wavelet_type,
+                padded=padded, levels=self.levels, hist_stride=HIST_STRIDE,
+                interleaved=True)
+            buf[3 * i : 3 * i + 3, :p].copy_(planes)
+            hists.append(hist)
+            del planes
+        buf[:, p:].zero_()
+        streams, counts, hists = _entropy_encode(
+            buf, torch.cat(hists), s_seg=self.s_seg, v_seg=_pick_v_seg(n_seg),
+            p=p)
+        rows = 3 * n_seg
+        return [DeviceChunk(w, h, t, self.wavelet_type, self.step, self.s_seg,
+                            streams[i * rows : (i + 1) * rows],
+                            counts[i * rows : (i + 1) * rows],
+                            hists[3 * i : 3 * i + 3], levels=self.levels)
+                for i in range(b)]
+
+    def _phase1_chunks(self, x, padded, pp: int, active=(0, 1, 2)):
+        """Sparse phase 1 of each chunk of ``x`` over the ``active``
+        channels: ``(planes, tile rows, value-row and flag tensors)``, the
+        planes and tile rows one per (chunk, active channel), left where
+        each chunk's phase 1 put them."""
+        outs = [encode_sparse_phase1(
+            x[i], self.step, self.step, wavelet_type=self.wavelet_type,
+            padded=padded, pp=pp, levels=self.levels, active=active)
+            for i in range(x.shape[0])]
+        return ([pl for o in outs for pl in o[0]],
+                [r for o in outs for r in o[1]],
+                torch.stack([o[1].sum(-1, dtype=torch.int64) for o in outs]),
+                torch.stack([o[2] for o in outs]))
+
+    def _encode_batch_sparse(self, x) -> list[DeviceChunk]:
+        """Sparse batch: phase 1 a chunk over the batch's union active set
+        (cached per (B, pp, s_seg), apart from the single-chunk key), one
+        host read of the value rows and colour flags, then one compact and
+        one encode launch over the B·na planes.  A wrong guess runs phase
+        1 again over the needed channels, and the capacities the JAX
+        package's discarded dispatch caches for the first set are cached
+        too (as in :meth:`_encode_sparse`)."""
+        b, t, h, w, _ = x.shape
+        padded = padded_dims_levels(w, h, t, self.levels)
+        pp = _sparse_pp(int(np.prod(padded)))
+        akey = (b, pp, self.s_seg)
+        active = self._active_cache.get(akey, (0, 1, 2))
+
+        def phase1(chans):
+            planes, trows, rows, flags = self._phase1_chunks(x, padded, pp,
+                                                             chans)
+            host = torch.cat([rows.reshape(-1),
+                              flags.reshape(-1).to(torch.int64)]).tolist()
+            wire = tuple(3 * i + c for i in range(b) for c in chans)
+            return planes, trows, host[: len(wire)], host[len(wire):], wire
+
+        planes, trows, rows, flags, wire = phase1(active)
+        needed = tuple(sorted({0} | {c for c in range(3)
+                                     if any(flags[3 * i + c] for i in range(b))}))
+        if not set(needed) <= set(active):
+            self._settle_krs(rows, wire, pp, 3 * b, 3)
+            del planes, trows
+            active = needed
+            planes, trows, rows, _, wire = phase1(active)
+        self._active_cache[akey] = needed
+        streams, counts, hists, kcaps = self._sparse_phase2(
+            planes, trows, pp, rows, wire, 3 * b, 3)
+        return self._split_sparse(streams, counts, hists, kcaps, (w, h, t), pp)
+
+    def _split_sparse(self, streams, counts, hists, kcaps, dims, pp: int
+                      ) -> list[DeviceChunk]:
+        """B self-contained chunks from one batch's phase 2, whose
+        segments run chunk by chunk (its coded planes' bitmap segments,
+        then their value segments) and whose hists are the (2·3B, 256)
+        wire layout."""
+        b = len(kcaps) // 3
+        nb, _ = _segment_geometry(pp // 8, self.s_seg)
+        seg = self.s_seg * NG
+        chunks, off = [], 0
+        for i in range(b):
+            kc = tuple(kcaps[3 * i : 3 * i + 3])
+            n = sum(1 for k in kc if k) * nb + sum(k // seg for k in kc)
+            chunks.append(DeviceChunk(
+                *dims, self.wavelet_type, self.step, self.s_seg,
+                streams[off : off + n], counts[off : off + n],
+                torch.cat([hists[3 * i : 3 * i + 3],
+                           hists[3 * b + 3 * i : 3 * b + 3 * i + 3]]),
+                levels=self.levels, sparse=True, kcaps=kc))
+            off += n
+        return chunks
+
+    def _encode_batch_sparse_mesh(self, rgb_batch, mesh) -> list[DeviceChunk]:
+        """Sparse batch over a mesh: phase 1 on every shard, one host read
+        of the B·3 row counts, then phase 2 on every shard with ONE
+        capacity a channel, the batch maximum's bucket (no plane elided;
+        DENSE_ROW_FRAC batch-wide; the caches neither read nor written),
+        so every chunk carries the same kcaps.  An uneven B encodes per
+        chunk."""
+        if not isinstance(rgb_batch, (list, tuple)):
+            b = len(rgb_batch)
+            if b % mesh.size:
+                return [self.encode(c) for c in _chunks_of(rgb_batch)]
+        shards = _shards(rgb_batch, mesh)
+        bl, t, h, w, _ = shards[0].shape
+        padded = padded_dims_levels(w, h, t, self.levels)
+        pp = _sparse_pp(int(np.prod(padded)))
+        p1 = []
+        for dev, x in zip(mesh.devices, shards):
+            with on_device(dev):
+                p1.append(self._phase1_chunks(x, padded, pp))
+        rows = gather([r for _, _, r, _ in p1], mesh.devices[0]).tolist()
+        max_nv = _segment_geometry(pp, self.s_seg)[0]
+
+        def ch_bucket(r: int) -> int:
+            if r >= DENSE_ROW_FRAC * (pp // NG):
+                return max_nv
+            nv = max(_bucket_nv(r, self.s_seg, max_nv), DEFAULT_V_SEG)
+            return max_nv if nv >= max_nv else nv
+
+        nv3 = tuple(ch_bucket(max(r[c] for r in rows)) for c in range(3))
+        krs3 = tuple(nv * self.s_seg for nv in nv3)
+        dense3 = tuple(c for c in range(3) if nv3[c] == max_nv)
+        nb, _ = _segment_geometry(pp // 8, self.s_seg)
+        chunks = []
+        for dev, (planes, trows, _, _) in zip(mesh.devices, p1):
+            with on_device(dev):
+                streams, counts, hists = _encode_chunk_sparse(
+                    planes, trows, pp=pp, s_seg=self.s_seg, krs=krs3 * bl,
+                    v_b=_pick_v_seg(nb), wire_active=tuple(range(3 * bl)),
+                    wire_nc=3 * bl, chunk_planes=3,
+                    dense=tuple(3 * j + c for j in range(bl) for c in dense3))
+            chunks += self._split_sparse(
+                streams, counts, hists, tuple(k * NG for k in krs3) * bl,
+                (w, h, t), pp)
+        return chunks
+
+    def decode_batch(self, chunks: list[DeviceChunk], *, exact: bool = False,
+                     mesh=None) -> torch.Tensor:
+        """Decode B chunks → (B, T, H, W, 3) uint8 on the first chunk's
+        device (with ``mesh``: the mesh's first device).
+
+        Fixed-step chunks of one geometry decode in one word-rANS decode
+        launch (sparse: and one expand launch) and K4 once a chunk; with
+        ``mesh`` each device decodes its shard (sparse: where every chunk
+        has the same kcaps and none is elided, as the mesh encoder makes
+        them).  rdo, deep or mixed chunks decode per chunk."""
+        c0 = chunks[0]
+        dev = mesh.devices[0] if mesh is not None else c0.streams.device
+
+        def geom(c):
+            return (c.width, c.height, c.frames, c.s_seg, c.levels,
+                    c.wavelet_type)
+
+        def plain_sparse(c):
+            return (c.sparse and not c.deep and c.band_steps is None
+                    and geom(c) == geom(c0))
+
+        if mesh is not None and len(chunks) % mesh.size == 0 and all(
+                plain_sparse(c) and c.kcaps == c0.kcaps
+                and all(k > 0 for k in c.kcaps) for c in chunks):
+            return _on_mesh(self._decode_batch_sparse, chunks, mesh, exact)
+        if mesh is None and all(plain_sparse(c) for c in chunks):
+            return self._decode_batch_sparse(chunks, exact)
+        if any(c.band_steps is not None or c.deep or c.sparse for c in chunks):
+            return torch.stack([self.decode(c, exact=exact).to(dev)
+                                for c in chunks])
+        if any(geom(c) != geom(c0) for c in chunks):
+            raise ValueError("the dense chunks of a batch must share their "
+                             "geometry, segment length and levels")
+        if mesh is None:
+            return self._decode_batch_dense(chunks, exact)
+        return _on_mesh(self._decode_batch_dense, chunks, mesh, exact)
+
+    def _decode_batch_dense(self, chunks, exact: bool) -> torch.Tensor:
+        """One decode launch over the B·3 planes, then K4 once a chunk."""
+        c0 = chunks[0]
+        dev = c0.streams.device
+        chunks = [_chunk_to(c, dev) for c in chunks]
+        w, h, t = c0.width, c0.height, c0.frames
+        padded = padded_dims_levels(w, h, t, c0.levels)
+        planes = _entropy_decode(
+            _join([c.streams for c in chunks]), _join([c.counts for c in chunks]),
+            torch.cat([c.hists for c in chunks]), padded=padded,
+            s_seg=c0.s_seg, v_seg=_pick_v_seg(c0.n_segments))
+        return self._inverse_chunks(chunks, planes, padded, exact, None)
+
+    def _decode_batch_sparse(self, chunks, exact: bool) -> torch.Tensor:
+        """One decode and one expand launch over the B·3 planes, then K4
+        once a chunk; the shared active set goes to the inverse only where
+        every chunk has the same one."""
+        c0 = chunks[0]
+        dev = c0.streams.device
+        chunks = [_chunk_to(c, dev) for c in chunks]
+        b = len(chunks)
+        padded = padded_dims_levels(c0.width, c0.height, c0.frames, c0.levels)
+        p = int(np.prod(padded))
+        nb, _ = _segment_geometry(_sparse_pp(p) // 8, c0.s_seg)
+        planes = _sparse_entropy_expand(
+            _join([c.streams for c in chunks]), _join([c.counts for c in chunks]),
+            torch.cat([c.hists[:3] for c in chunks]
+                      + [c.hists[3:] for c in chunks]),
+            p=p, s_seg=c0.s_seg, kcaps=tuple(k for c in chunks for k in c.kcaps),
+            v_b=_pick_v_seg(nb), nc=3 * b, chunk_planes=3)
+        acts = {tuple(i for i in range(3) if c.kcaps[i] > 0) for c in chunks}
+        active = acts.pop() if len(acts) == 1 else None
+        return self._inverse_chunks(chunks, planes, padded, exact, active)
+
+    @staticmethod
+    def _inverse_chunks(chunks, planes, padded, exact: bool, active):
+        """K4 (and the inverse colour) a chunk, from the batch's (3B, P)
+        decoded planes, into one (B, T, H, W, 3) tensor."""
+        c0 = chunks[0]
+        dev = planes.device
+        w, h, t = c0.width, c0.height, c0.frames
+        out = torch.empty((len(chunks), t, h, w, 3), dtype=torch.uint8,
+                          device=dev)
+        for i, c in enumerate(chunks):
+            steps = torch.full((3,), c.quant_step, dtype=torch.int32,
+                               device=dev)
+            out[i] = decode_device(
+                planes[3 * i : 3 * i + 3], steps,
+                wavelet_type=c0.wavelet_type, dims=(w, h, t), padded=padded,
+                exact=exact, levels=c0.levels, active=active, interleaved=True)
+        return out
 
     # ── container serialization (host interchange) ──────────────
 

@@ -5,6 +5,7 @@ needs, kept here so the port never imports the JAX package:
 
 * ``SubBand3D``      — reference src/lib.rs:113-160
 * ``WaveletType``    — reference src/pipeline.rs:34-62
+* ``DEFAULT_CHUNK_SIZE`` — reference src/lib.rs:110
 * quality → quantization-step mapping — reference src/pipeline.rs:452-457
 * even-dimension padding rules — reference src/pipeline.rs:437-440, 547-550
 """
@@ -14,6 +15,9 @@ from __future__ import annotations
 import enum
 
 from .errors import DimensionOverflow, InvalidBitstream
+
+#: Default chunk size for the 3D wavelet (frames). Reference: src/lib.rs:110.
+DEFAULT_CHUNK_SIZE = 64
 
 #: Maximum value of the reference's usize (64-bit) used by the checked
 #: dimension multiplication (reference: src/pipeline.rs:67-71).

@@ -69,7 +69,7 @@ namespace {
 constexpr int NG = 128;
 constexpr int TILE_ROWS = 8;
 constexpr int TILE = TILE_ROWS * NG;
-constexpr int MAX_PLANES = 16;
+constexpr int MAX_PLANES = 64;  // planes a launch (21 chunks of a batch)
 constexpr int GROUP = 32;                // tiles a group (a warp's scan)
 constexpr int THREADS = GROUP * 8;       // a thread per (tile, 16-lane strip)
 constexpr long long TAIL_BYTES = 32768;  // bytes one tail block zeroes

@@ -73,7 +73,7 @@ GROUP_TILES = 32
 TAIL_BYTES = 32768
 
 _TILE = TILE_ROWS * NG
-_MAX_PLANES = 16  # csrc/sparse.cu MAX_PLANES
+_MAX_PLANES = 64  # csrc/sparse.cu MAX_PLANES: the planes of a launch
 
 
 def _norm_krs(krs, nc: int) -> tuple[int, ...]:
@@ -176,8 +176,31 @@ def _check_views(views, n: int, what: str, sizes, *, at_least=False) -> list:
     return views
 
 
-def _pick(symbols: torch.Tensor, pick) -> tuple[int, ...]:
-    n = symbols.shape[0]
+def _plane_list(symbols, trows) -> tuple[list, list, int]:
+    """``symbols`` (n, P) uint8 and their (n, P/1024) int32 tile rows, or
+    a sequence of n (P,) planes and a sequence of their (P/1024,) tile
+    rows → ``(n planes, n tile rows, P)``, checked."""
+    if isinstance(symbols, torch.Tensor):
+        _check_planes(symbols, "symbols", _TILE)
+        _check_trows(trows, symbols)
+        return list(symbols), list(trows), symbols.shape[1]
+    planes, rows = list(symbols), list(trows)
+    p = planes[0].numel() if planes else 0
+    if not planes or p % _TILE or len(rows) != len(planes):
+        raise ValueError(f"{len(planes)} planes of {p} symbols and "
+                         f"{len(rows)} tile rows (whole tiles of {_TILE})")
+    for x in planes:
+        if x.dtype != torch.uint8 or x.ndim != 1 or x.numel() != p:
+            raise ValueError(f"a plane must be ({p},) uint8, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    for r in rows:
+        if r.dtype != torch.int32 or tuple(r.shape) != (p // _TILE,):
+            raise ValueError(f"tile rows must be ({p // _TILE},) int32, got "
+                             f"{tuple(r.shape)} {r.dtype}")
+    return planes, rows, p
+
+
+def _pick(n: int, pick) -> tuple[int, ...]:
     pick = tuple(range(n)) if pick is None else tuple(int(i) for i in pick)
     if not pick or any(not 0 <= i < n for i in pick):
         raise ValueError(f"plane selection {pick} of {n} planes")
@@ -198,10 +221,12 @@ def compact_plain(symbols: torch.Tensor, trows: torch.Tensor, krs, *,
     with ``out = (bitmap views, value views)``, one 1-D view per picked
     plane — its bitmap segment of at least P/8 bytes (zeroed past P/8) and
     its ``krs[i]·128`` value bytes — writes them instead and returns
-    ``out``."""
-    _check_planes(symbols, "symbols", _TILE)
-    _check_trows(trows, symbols)
-    pick = _pick(symbols, pick)
+    ``out``.  ``symbols`` and ``trows`` may instead be sequences of (P,)
+    planes and their (P/1024,) tile rows."""
+    planes, rows, _ = _plane_list(symbols, trows)
+    if not isinstance(symbols, torch.Tensor):
+        symbols, trows = torch.stack(planes), torch.stack(rows)
+    pick = _pick(symbols.shape[0], pick)
     if pick != tuple(range(symbols.shape[0])):
         index = torch.tensor(pick, device=symbols.device)
         symbols, trows = symbols[index], trows[index]
@@ -348,26 +373,29 @@ def _scratch(nc: int, ng: int, dev: torch.device) -> torch.Tensor:
     return torch.empty(2 * nc * ng + nc, dtype=torch.int32, device=dev)
 
 
-def compact(symbols: torch.Tensor, trows: torch.Tensor, krs, *, pick=None,
-            out=None):
+def compact(symbols, trows, krs, *, pick=None, out=None):
     """Sparse compact: (n, P) uint8 symbols → ``(bitmaps (len(pick), P/8)
     uint8, values (sum(krs), 128) uint8)``, or in place into ``out``, as
     :func:`compact_plain` says.  ``trows``: the symbols'
     :func:`tile_rows` (phase 1 has them; the tile bases are their
     prefix); ``krs``: value capacity rows (int, or one per picked
-    plane)."""
-    _check_planes(symbols, "symbols", _TILE)
-    if symbols.device.type == "cpu":
+    plane).  ``symbols`` and ``trows`` may instead be sequences of (P,)
+    planes (each 16-byte aligned) and their tile rows: the planes of a
+    batch's chunks, read where each chunk's phase 1 left them.  One
+    launch codes up to ``_MAX_PLANES`` picked planes."""
+    planes, rows, p = _plane_list(symbols, trows)
+    if planes[0].device.type == "cpu":
         return compact_plain(symbols, trows, krs, pick=pick, out=out)
-    if not symbols.is_cuda:
-        raise ValueError(f"compact: unsupported device {symbols.device}")
-    _check_trows(trows, symbols)
-    pick = _pick(symbols, pick)
-    nc, p = len(pick), symbols.shape[1]
+    if not planes[0].is_cuda:
+        raise ValueError(f"compact: unsupported device {planes[0].device}")
+    pick = _pick(len(planes), pick)
+    nc = len(pick)
     krs = _norm_krs(krs, nc)
-    sym = symbols.contiguous()
-    dev = sym.device
-    tr = trows.to(dev).contiguous()
+    dev = planes[0].device
+    if isinstance(symbols, torch.Tensor):
+        planes = list(symbols.contiguous())
+        rows = list(trows.to(dev).contiguous())
+    planes, rows = [planes[i] for i in pick], [rows[i] for i in pick]
     tiles = p // _TILE
     if out is None:
         bitmaps = torch.empty((nc, p // 8), dtype=torch.uint8, device=dev)
@@ -386,31 +414,36 @@ def compact(symbols: torch.Tensor, trows: torch.Tensor, krs, *, pick=None,
     bm_lens = [b.numel() for b in bm_out]
     if any(b % 16 for b in bm_lens):
         raise ValueError(f"bitmap segments of {bm_lens} bytes (multiples of 16)")
-    if sym.data_ptr() % 16:
-        raise ValueError("symbols not 16-byte aligned")
+    _check_device(planes, dev, "a symbol plane")
     _check_device(bm_out, dev, "a bitmap view")
     _check_device(val_out, dev, "a values view")
-    ng, nz = group_grid(tiles, krs, bm_lens)
-    _check_count(nc, tiles, ng, nz)
-    src = (ctypes.c_longlong * nc)(*[sym.data_ptr() + i * p for i in pick])
-    rows = (ctypes.c_longlong * nc)(*[tr.data_ptr() + i * tiles * 4 for i in pick])
-    bm_len = (ctypes.c_longlong * nc)(*bm_lens)
-    kr = (ctypes.c_longlong * nc)(*krs)
-    bm_ptr, val_ptr = _addrs(bm_out), _addrs(val_out)
-    scratch = _scratch(nc, ng, dev)
-    _build.check(_lib().alc_sparse_compact(
-        nc, tiles, ng, nz, ctypes.addressof(src), ctypes.addressof(rows),
-        ctypes.addressof(bm_ptr), ctypes.addressof(bm_len),
-        ctypes.addressof(val_ptr), ctypes.addressof(kr), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "compact")
-    compact.launches += 1
+    for r in rows:
+        if r.device != dev or not r.is_contiguous():
+            raise ValueError(f"tile rows on {r.device}, not contiguous on {dev}")
+    for g in range(0, nc, _MAX_PLANES):
+        sel = slice(g, g + _MAX_PLANES)
+        n, kg = len(planes[sel]), krs[sel]
+        ng, nz = group_grid(tiles, kg, bm_lens[sel])
+        _check_count(n, tiles, ng, nz)
+        src, trs = _addrs(planes[sel]), _addrs(rows[sel])
+        bm_len = (ctypes.c_longlong * n)(*bm_lens[sel])
+        kr = (ctypes.c_longlong * n)(*kg)
+        bm_ptr, val_ptr = _addrs(bm_out[sel]), _addrs(val_out[sel])
+        scratch = _scratch(n, ng, dev)
+        _build.check(_lib().alc_sparse_compact(
+            n, tiles, ng, nz, ctypes.addressof(src), ctypes.addressof(trs),
+            ctypes.addressof(bm_ptr), ctypes.addressof(bm_len),
+            ctypes.addressof(val_ptr), ctypes.addressof(kr), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "compact")
+        compact.launches += 1
     return result
 
 
 def expand(bitmaps, values, krs, *, out=None):
     """Sparse expand: (nc, P/8) uint8 bitmaps + (sum(krs), 128) uint8
     values → (nc, P) uint8 symbols, or per-plane views in and out, as
-    :func:`expand_plain` says."""
+    :func:`expand_plain` says.  One launch decodes up to ``_MAX_PLANES``
+    planes."""
     first = bitmaps if isinstance(bitmaps, torch.Tensor) else next(iter(bitmaps), None)
     if first is None:
         raise ValueError("expand: no bitmap planes")
@@ -439,16 +472,21 @@ def expand(bitmaps, values, krs, *, out=None):
     for o in out_views:
         if o.device != dev:
             raise ValueError(f"an output view on {o.device}, not {dev}")
-    ng, _ = group_grid(tiles, krs)
-    _check_count(nc, tiles, ng)
-    kr = (ctypes.c_longlong * nc)(*krs)
-    bm_ptr, val_ptr, out_ptr = _addrs(bm_views), _addrs(val_views), _addrs(out_views)
-    scratch = _scratch(nc, ng, dev)
-    _build.check(_lib().alc_sparse_expand(
-        nc, tiles, ng, n_out, ctypes.addressof(bm_ptr), ctypes.addressof(val_ptr),
-        ctypes.addressof(out_ptr), ctypes.addressof(kr), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "expand")
-    expand.launches += 1
+    for g in range(0, nc, _MAX_PLANES):
+        sel = slice(g, g + _MAX_PLANES)
+        n, kg = len(bm_views[sel]), krs[sel]
+        ng, _ = group_grid(tiles, kg)
+        _check_count(n, tiles, ng)
+        kr = (ctypes.c_longlong * n)(*kg)
+        bm_ptr, val_ptr = _addrs(bm_views[sel]), _addrs(val_views[sel])
+        out_ptr = _addrs(out_views[sel])
+        scratch = _scratch(n, ng, dev)
+        _build.check(_lib().alc_sparse_expand(
+            n, tiles, ng, n_out, ctypes.addressof(bm_ptr),
+            ctypes.addressof(val_ptr), ctypes.addressof(out_ptr),
+            ctypes.addressof(kr), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "expand")
+        expand.launches += 1
     return result
 
 

@@ -1,5 +1,5 @@
-"""Chunk batches and the ALC2 batched container (the port of
-``alice_codec_tpu/parallel/``; mesh sharding is not ported yet)."""
+"""Chunk batches, the ALC2 batched container and chunk meshes (the port
+of ``alice_codec_tpu/parallel/``)."""
 
 from .batch import (  # noqa: F401
     DEFAULT_LANES,
@@ -8,3 +8,4 @@ from .batch import (  # noqa: F401
     EncodedChunkStream,
     chunk_frames,
 )
+from .mesh import chunk_mesh, shard_batch  # noqa: F401

@@ -23,8 +23,10 @@ ALC2 container layout (little-endian)::
     concatenated payloads (chunk-major, channel-major, lane-major)
 
 Every chunk stays independently decodable (self-contained headers and
-histograms).  Not ported yet: sharding a batch over devices (``mesh=``,
-ROADMAP Queue 1 item 11).
+histograms).  With ``mesh=`` (:func:`~.mesh.chunk_mesh`) the encode and
+decode stages run on every device over its shard of the batch; the
+entropy stage runs on the first, so the stream is the one without a
+mesh.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..native import get_lib
 from ..ops.kernels.rans_nway import decode_nway, encode_pack_nway
 from ..ops.rans import FrequencyTable, RansDecoder, RansEncoder, _ctypes_ptr
 from ..pipeline import ChannelHeader, as_uint8_tensor, decode_device, encode_device
+from .mesh import gather, on_device, shard_batch
 
 __all__ = [
     "DEFAULT_LANES",
@@ -86,11 +89,47 @@ def chunk_frames(frames: np.ndarray, chunk_size: int = 64) -> tuple[np.ndarray, 
     return frames.reshape(b, chunk_size, *frames.shape[1:]), n
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding a chunk batch over devices (mesh=) is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+def _encode_batch_device(rgb, step, dead_zone, *, wavelet_type, padded,
+                         sharded: bool = False):
+    """The encode stage of every chunk, in the reference layout:
+    ``(symbols (B, 3, P) uint8, histograms (B, 3, 256) int64)`` on
+    ``rgb``'s device.  ``sharded``: ``rgb`` is a list of per-device shards
+    (:func:`~.mesh.shard_batch`), and the results are lists of per-shard
+    tensors on their devices, every device's work issued before any is
+    read."""
+    if sharded:
+        outs = []
+        for x in rgb:
+            with on_device(x.device):
+                outs.append(_encode_batch_device(
+                    x, step, dead_zone, wavelet_type=wavelet_type,
+                    padded=padded))
+        return [o[0] for o in outs], [o[1] for o in outs]
+    outs = [encode_device(rgb[i], step, dead_zone, wavelet_type=wavelet_type,
+                          padded=padded, interleaved=False)
+            for i in range(rgb.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def _decode_batch_device(symbols, steps, *, wavelet_type, dims, padded,
+                         exact: bool = False, sharded: bool = False):
+    """The decode stage of every chunk: (B, 3, P) uint8 symbols in the
+    reference layout and (B, 3) steps → (B, T, H, W, 3) uint8 RGB;
+    ``sharded`` as for :func:`_encode_batch_device`."""
+    if sharded:
+        outs = []
+        for sym, st in zip(symbols, steps):
+            with on_device(sym.device):
+                outs.append(_decode_batch_device(
+                    sym, st, wavelet_type=wavelet_type, dims=dims,
+                    padded=padded, exact=exact))
+        return outs
+    return torch.stack([decode_device(symbols[i], steps[i],
+                                      wavelet_type=wavelet_type, dims=dims,
+                                      padded=padded, exact=exact,
+                                      interleaved=False)
+                        for i in range(symbols.shape[0])])
 
 
 @dataclass
@@ -172,38 +211,42 @@ class BatchFrameEncoder:
     encode-and-pack kernels — the JAX package's scan coder and its
     fallback to it have no counterpart here, the kernels take any step
     count — and on the CPU through their plain version.  ``pallas_entropy`` is accepted for API
-    parity and changes nothing.  ``mesh`` is not ported yet (raises).
+    parity and changes nothing.  ``mesh`` (:func:`~.mesh.chunk_mesh`): the
+    encode stage runs on every mesh device over its shard of the batch,
+    the entropy stage on the first device (the working device unless
+    ``device`` names another); the stream is the one without a mesh.
     """
 
     def __init__(self, quality: int = 90, wavelet: str | WaveletType = "cdf53",
                  *, n_lanes: int = DEFAULT_LANES, mesh=None,
                  device_entropy: bool = False, pallas_entropy: bool = False,
                  device=None):
-        _no_mesh(mesh)
         self.quality = int(quality)
         self.wavelet_type = (wavelet if isinstance(wavelet, WaveletType)
                              else WaveletType.from_name(wavelet))
         self.n_lanes = int(n_lanes)
-        self.mesh = None
+        self.mesh = mesh
         self.device_entropy = bool(device_entropy)
         self.pallas_entropy = bool(pallas_entropy)
         self.step = quality_to_step(self.quality)
-        self.device = resolve_device(device)
+        self.device = (mesh.devices[0] if mesh is not None and device is None
+                       else resolve_device(device))
 
     def encode_device_stage(self, batch):
         """The encode stage of every chunk: ``(symbols (B, 3, P) uint8,
         histograms (B, 3, 256) int64)`` on the working device.  ``batch``:
         (B, T, H, W, 3) uint8, numpy or a tensor (used in place when it is
-        already on the device)."""
-        x = as_uint8_tensor(batch, self.device)
-        b, t, h, w, _ = x.shape
-        padded = padded_dims(w, h, t)
-        outs = [encode_device(x[i], self.step, self.step,
-                              wavelet_type=self.wavelet_type, padded=padded,
-                              interleaved=False)
-                for i in range(b)]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
+        already on the device); with a mesh, split over its devices and
+        the results gathered."""
+        b, t, h, w, _ = batch.shape
+        kw = dict(wavelet_type=self.wavelet_type, padded=padded_dims(w, h, t))
+        if self.mesh is None:
+            return _encode_batch_device(as_uint8_tensor(batch, self.device),
+                                        self.step, self.step, **kw)
+        sym, hists = _encode_batch_device(
+            [x.to(torch.uint8) for x in shard_batch(batch, self.mesh)],
+            self.step, self.step, sharded=True, **kw)
+        return gather(sym, self.device), gather(hists, self.device)
 
     def encode(self, batch) -> EncodedChunkStream:
         """Encode a (B, T, H, W, 3) uint8 chunk batch (numpy or a tensor)
@@ -271,16 +314,19 @@ class BatchFrameDecoder:
     decode kernel, which reads each lane straight out of the uploaded
     payload, so symbols never visit the host; on the CPU through its
     plain version.  ``pallas_entropy=True`` implies ``device_entropy``
-    (as in the JAX package) and changes nothing else.  ``mesh`` is not
-    ported yet (raises)."""
+    (as in the JAX package) and changes nothing else.  ``mesh``
+    (:func:`~.mesh.chunk_mesh`): the entropy stage runs on the first
+    device (the working device unless ``device`` names another), the
+    decode stage on every mesh device over its shard of the batch, and
+    the RGB is gathered onto the working device."""
 
     def __init__(self, *, mesh=None, device_entropy: bool = False,
                  pallas_entropy: bool = False, device=None):
-        _no_mesh(mesh)
-        self.mesh = None
+        self.mesh = mesh
         self.device_entropy = bool(device_entropy) or bool(pallas_entropy)
         self.pallas_entropy = bool(pallas_entropy)
-        self.device = resolve_device(device)
+        self.device = (mesh.devices[0] if mesh is not None and device is None
+                       else resolve_device(device))
 
     def decode(self, stream: EncodedChunkStream, *, exact: bool = False,
                as_numpy: bool = True):
@@ -347,12 +393,16 @@ class BatchFrameDecoder:
             sym = torch.from_numpy(symbols[:, :, :padded_pixels]).to(dev)
 
         steps_dev = torch.from_numpy(steps).to(dev)
-        rgb = [decode_device(sym[i], steps_dev[i],
-                             wavelet_type=stream.wavelet_type, dims=(w, h, t),
-                             padded=padded, exact=exact, interleaved=False)
-               for i in range(b)]
-        rgb = (torch.stack(rgb) if rgb
-               else torch.empty((0, t, h, w, 3), dtype=torch.uint8, device=dev))
+        kw = dict(wavelet_type=stream.wavelet_type, dims=(w, h, t),
+                  padded=padded, exact=exact)
+        if not b:
+            rgb = torch.empty((0, t, h, w, 3), dtype=torch.uint8, device=dev)
+        elif self.mesh is None:
+            rgb = _decode_batch_device(sym, steps_dev, **kw)
+        else:
+            rgb = gather(_decode_batch_device(
+                shard_batch(sym, self.mesh), shard_batch(steps_dev, self.mesh),
+                sharded=True, **kw), dev)
         return rgb.cpu().numpy() if as_numpy else rgb
 
 

@@ -58,6 +58,21 @@ Phases (any failure raises and exits non-zero before the last line):
    n_lanes=4096, device_entropy=True)`` → ``EncodedChunkStream`` bytes →
    ``BatchFrameDecoder(device_entropy=True)``), whose payload and RGB
    equal the host-entropy coder's;
+4b. batches, chunk meshes and streams, on the ALC2 batch's first two
+   chunks (2 × 64×1080×1920, seeds 0 and 1), the launch counts set to 0
+   just before each roundtrip and read just after:
+   ``Alc3Codec(90, "cdf53")``, the north star and its q=50 form through
+   ``encode_batch`` / ``decode_batch`` (K1 / K4 once a chunk, K2 / K3
+   once a batch, on q=50 K5 / K6 once a batch), each batch's containers
+   and RGB equal to the plain pipeline's, each row to the per-chunk
+   decode, the dense containers to per-chunk encode's, chunks/s as
+   batches and per chunk; then over ``chunk_mesh()`` (the visible
+   cards): the dense batch's streams equal to the batch without a mesh,
+   the sparse q=90 and q=50 mesh roundtrips decoding to the per-chunk
+   decode with containers that parse, and the ALC2 batch's stream with
+   ``mesh=`` equal to the one without; then 136 frames of 1080p (three
+   chunks) through ``encode_stream`` into an `.alcs3` file and back
+   through ``decode_stream``, equal to the per-chunk decode;
 5. timings (chunks/s, peak memory) of each path, one roundtrip of each
    under torch.profiler (device time by kernel), the ``kernels`` JSON
    line and the final ``{"ok": true, ...}`` line.
@@ -80,6 +95,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -241,14 +257,15 @@ def main() -> int:
     import numpy as np
 
     from alice_codec_tpu_torch import (
-        Alc3Codec, EncodedChunk, FrameDecoder, FrameEncoder, FrequencyTable,
-        WaveletType, _build, native, quality_to_step)
+        Alc3Codec, Alc3StreamReader, Alc3StreamWriter, EncodedChunk,
+        FrameDecoder, FrameEncoder, FrequencyTable, WaveletType, _build,
+        decode_stream, encode_stream, native, quality_to_step)
     from alice_codec_tpu_torch import alc3, pipeline
     from alice_codec_tpu_torch.ops.kernels.rans_nway import (
         decode_nway, decode_nway_plain, encode_nway, encode_nway_plain,
         encode_pack_nway, lane_offsets, pack_streams)
     from alice_codec_tpu_torch.parallel import (
-        BatchFrameDecoder, BatchFrameEncoder, EncodedChunkStream)
+        BatchFrameDecoder, BatchFrameEncoder, EncodedChunkStream, chunk_mesh)
     from alice_codec_tpu_torch.parallel.batch import _lane_sym_count
     from alice_codec_tpu_torch.utils.golden import golden_rgb
     from alice_codec_tpu_torch.ops.kernels import (
@@ -1290,6 +1307,183 @@ def main() -> int:
           f"run encode {t_alc2[0]:.3f} s, decode {t_alc2[1]:.3f} s; host "
           f"entropy encode {t_host_enc:.3f} s, decode {t_host_dec:.3f} s [{card}]")
     del b_out
+    torch.cuda.empty_cache()
+
+    # ── 4b. batches, chunk meshes and streams ───────────────────
+    # (a function, so that nothing it leaves on the card outlives it)
+    def batches_meshes_streams():
+        # two chunks of different seeds (the ALC2 batch's first two), each
+        # batch path's roundtrip with the launch counts set to 0 just before
+        # it and read just after: K1 / K4 once a chunk, K2 / K3 (and on q=50
+        # K5 / K6) once a batch
+        rgb2 = batch_dev[:2]
+        batch_paths = {"batch_dense_q90": Alc3Codec(QUALITY, "cdf53"),
+                       "batch_sparse_q90": Alc3Codec(QUALITY, "cdf53", sparse=True),
+                       "batch_sparse_q50": Alc3Codec(50, "cdf53", sparse=True)}
+        batch_data = {}
+        for name, codec in batch_paths.items():
+            out = codec.decode_batch(codec.encode_batch(rgb2))  # warm-up (fills the caches)
+            torch.cuda.synchronize()
+            del out
+            caches = dict(codec._krs_cache), dict(codec._active_cache)
+            reset_launches()
+            chunks = codec.encode_batch(rgb2)
+            out = codec.decode_batch(chunks)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            print(f"{name} launches: {launches}")
+            want = {"forward_quant": 2, "encode_words": 1, "decode_words": 1,
+                    "inverse_dequant": 2}
+            if name == "batch_sparse_q50":
+                want.update(compact=1, expand=1)
+            check(only(launches, want), f"{name}: expected {want}, got {launches}")
+            by_path[name] = launches
+            datas = [Alc3Codec.to_bytes(c) for c in chunks]
+            with plain_kernels():
+                p_codec = Alc3Codec(**settings(codec))
+                p_codec._krs_cache, p_codec._active_cache = (dict(c) for c in caches)
+                p_chunks = p_codec.encode_batch(rgb2)
+                p_datas = [Alc3Codec.to_bytes(c) for c in p_chunks]
+                p_out = p_codec.decode_batch(p_chunks)
+            check(datas == p_datas,
+                  f"{name}: containers differ from the plain pipeline's")
+            check(bool(torch.equal(out, p_out)),
+                  f"{name}: RGB differs from the plain pipeline's")
+            del p_chunks, p_out
+            for i, ck in enumerate(chunks):
+                check(bool(torch.equal(out[i], codec.decode(ck))),
+                      f"{name}: chunk {i} of decode_batch differs from its decode")
+            if not codec.sparse:
+                single = Alc3Codec(**settings(codec))
+                check(datas == [Alc3Codec.to_bytes(single.encode(rgb2[i]))
+                                for i in range(2)],
+                      f"{name}: containers differ from per-chunk encode's")
+            batch_data[name] = datas
+            kc = [list(c.kcaps) for c in chunks] if codec.sparse else ""
+            del chunks, out
+            torch.cuda.empty_cache()
+
+            def as_batch(codec=codec):
+                codec.decode_batch(codec.encode_batch(rgb2))
+                torch.cuda.synchronize()
+
+            def per_chunk(codec=codec):
+                for i in range(2):
+                    codec.decode(codec.encode(rgb2[i]))
+                torch.cuda.synchronize()
+
+            # peak memory of each form from its warm-up call, then the two
+            # forms in turns (host clock)
+            peak = {}
+            for form, fn in (("batch", as_batch), ("chunk", per_chunk)):
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                peak[form] = torch.cuda.max_memory_allocated() / 2**30
+            reps, t_form = 4, {"batch": 0.0, "chunk": 0.0}
+            for _ in range(reps):
+                for form, fn in (("batch", as_batch), ("chunk", per_chunk)):
+                    t0 = time.perf_counter()
+                    fn()
+                    t_form[form] += time.perf_counter() - t0
+            busy = {}
+            for form, fn in (("batch", as_batch), ("chunk", per_chunk)):
+                wall_ms, rows = device_profile(fn)
+                busy[form] = (sum(r[1] for r in rows), wall_ms)
+            print(f"{name}: {sum(map(len, datas))} container bytes{', kcaps ' if kc else ''}"
+                  f"{kc}; equal to the plain pipeline's, rows equal to the per-chunk "
+                  f"decode{'' if codec.sparse else ', containers to per-chunk encode'}; "
+                  f"roundtrip {2 * reps / t_form['batch']:.4f} chunks/s as batches of "
+                  f"2, {2 * reps / t_form['chunk']:.4f} chunks/s per chunk ({reps} of "
+                  f"each in turns, host clock, synchronized); peak memory "
+                  f"{peak['batch']:.3f} GiB as a batch, {peak['chunk']:.3f} GiB per "
+                  f"chunk; device kernel time of two chunks (torch.profiler) "
+                  f"{busy['batch'][0]:.3f} ms of {busy['batch'][1]:.3f} ms wall as a "
+                  f"batch, {busy['chunk'][0]:.3f} ms of {busy['chunk'][1]:.3f} ms per "
+                  f"chunk [{card}]")
+            torch.cuda.empty_cache()
+
+        # the chunk mesh over the visible cards: dense streams equal to the
+        # batch without a mesh; the sparse mesh roundtrips decode to the
+        # per-chunk decode and parse; the ALC2 stream equal without a mesh
+        mesh = chunk_mesh()
+        print(f"mesh: {mesh.size} device(s) {[str(d) for d in mesh.devices]} [{card}]")
+        dense = batch_paths["batch_dense_q90"]
+        reset_launches()
+        m_chunks = dense.encode_batch(rgb2, mesh=mesh)
+        m_out = dense.decode_batch(m_chunks, mesh=mesh)
+        torch.cuda.synchronize()
+        by_path["mesh_dense_q90"] = launches = launch_counts()
+        print(f"mesh_dense_q90 launches: {launches}")
+        check([Alc3Codec.to_bytes(c) for c in m_chunks] == batch_data["batch_dense_q90"],
+              "mesh_dense_q90: streams differ from the batch without a mesh")
+        check(bool(torch.equal(m_out, dense.decode_batch(m_chunks))),
+              "mesh_dense_q90: RGB differs from the batch without a mesh")
+        del m_chunks, m_out
+        for q in SPARSE_Q:
+            name = f"mesh_sparse_q{q}"
+            codec = Alc3Codec(q, "cdf53", sparse=True)
+            reset_launches()
+            m_chunks = codec.encode_batch(rgb2, mesh=mesh)
+            m_out = codec.decode_batch(m_chunks, mesh=mesh)
+            torch.cuda.synchronize()
+            by_path[name] = launches = launch_counts()
+            print(f"{name} launches: {launches}")
+            for i, ck in enumerate(m_chunks):
+                data = Alc3Codec.to_bytes(ck)
+                _, back = Alc3Codec.from_bytes(data)
+                check(bool(torch.equal(m_out[i], codec.decode(ck))),
+                      f"{name}: chunk {i} differs from its per-chunk decode")
+                check(bool(torch.equal(m_out[i], codec.decode(back[0]))),
+                      f"{name}: chunk {i}'s container decodes otherwise")
+            print(f"{name}: kcaps {[list(c.kcaps) for c in m_chunks]}; rows equal "
+                  f"to the per-chunk decode, containers parse [{card}]")
+            del m_chunks, m_out
+        m_enc = BatchFrameEncoder(QUALITY, "cdf53", n_lanes=ALC2_LANES,
+                                  device_entropy=True, mesh=mesh)
+        m_dec = BatchFrameDecoder(device_entropy=True, mesh=mesh)
+        reset_launches()
+        m_data = m_enc.encode(batch_dev).to_bytes()
+        m_out = m_dec.decode(EncodedChunkStream.from_bytes(m_data), as_numpy=False)
+        torch.cuda.synchronize()
+        by_path["mesh_alc2_q90"] = launches = launch_counts()
+        print(f"mesh_alc2_q90 launches: {launches}")
+        check(m_data == s_data, "mesh_alc2_q90: stream differs from the one without a mesh")
+        check(bool(torch.equal(m_out, b_dec.decode(EncodedChunkStream.from_bytes(s_data),
+                                                   as_numpy=False))),
+              "mesh_alc2_q90: RGB differs from the decode without a mesh")
+        del m_out
+        torch.cuda.empty_cache()
+
+        # streaming: 136 frames (three chunks, the last padded by repeating
+        # the last frame) through an .alcs3 file, against the per-chunk decode
+        frames = np.concatenate([batch_np[0], batch_np[1], batch_np[2][:8]])
+        s_codec = Alc3Codec(QUALITY, "cdf53", sparse=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "chunks.alcs3"
+            t0 = time.perf_counter()
+            with Alc3StreamWriter(path) as wr:
+                for data in encode_stream(frames, s_codec):
+                    wr.append(data)
+            t_enc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = list(decode_stream(Alc3StreamReader(path)))
+            t_dec = time.perf_counter() - t0
+            size = path.stat().st_size
+        check(len(got) == 3, f"stream: {len(got)} chunks, expected 3")
+        padded_frames = np.concatenate([frames, np.repeat(frames[-1:], 3 * T - 136, 0)])
+        ref = Alc3Codec(QUALITY, "cdf53", sparse=True)
+        for i, g in enumerate(got):
+            want_rgb = ref.decode(ref.encode(padded_frames[i * T : (i + 1) * T]),
+                                  as_numpy=True)
+            check(np.array_equal(g, want_rgb),
+                  f"stream: chunk {i} differs from its per-chunk decode")
+        print(f"stream: 136 frames of {H}x{W} in 3 chunks, {size} .alcs3 bytes, "
+              f"encode_stream + write {t_enc:.3f} s, read + decode_stream "
+              f"{t_dec:.3f} s (first run, host clock); frames equal to the "
+              f"per-chunk decode [{card}]")
+
+    batches_meshes_streams()
+    del batch_np
     torch.cuda.empty_cache()
 
     # ── 5. timings ──────────────────────────────────────────────

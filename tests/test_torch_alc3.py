@@ -249,11 +249,13 @@ def test_unported_modes_raise(kwargs):
         codec.rdo, codec.deep, codec.levels, codec.sparse)
     if codec.deep and codec.quality == 100:
         np.testing.assert_array_equal(out, rgb)  # lossless
-    # batched encode / decode are the features still to come
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        codec.encode_batch([rgb])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        codec.decode_batch([chunk])
+    # a batch of one codes this mode's chunk (rdo and deep per chunk, the
+    # others through the batch path) and decodes it alike
+    again = Alc3Codec(s_seg=S_SEG, device="cpu", **kwargs)
+    batch = again.encode_batch(rgb[None])
+    assert Alc3Codec.to_bytes(batch) == Alc3Codec.to_bytes(chunk)
+    np.testing.assert_array_equal(
+        again.decode_batch(batch, exact=True)[0].numpy(), out)
 
 
 #: flags byte → the codec that writes it

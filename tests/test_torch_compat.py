@@ -35,7 +35,8 @@ from alice_codec_tpu_torch.errors import (InvalidBitstream, InvalidBufferSize,
                                           InvalidDimensions)
 from alice_codec_tpu_torch.ops import wavelet
 from alice_codec_tpu_torch.parallel import (BatchFrameDecoder, BatchFrameEncoder,
-                                            EncodedChunkStream, chunk_frames)
+                                            EncodedChunkStream, chunk_frames,
+                                            chunk_mesh)
 from alice_codec_tpu_torch.utils.golden import golden_rgb
 
 # several pytest workers share the CPU: keep torch on one thread
@@ -357,10 +358,12 @@ def test_alc2_validation_errors():
         BatchFrameDecoder(device="cpu").decode(stream)
     with pytest.raises(InvalidBufferSize):
         BatchFrameEncoder(device="cpu").encode(np.zeros((2, 4, 4, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BatchFrameEncoder(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BatchFrameDecoder(mesh=object(), device="cpu")
+    # a mesh splits the batch's leading axis evenly, or raises
+    mesh = chunk_mesh(devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="split"):
+        BatchFrameEncoder(n_lanes=4, mesh=mesh).encode(_batch()[:1])
+    with pytest.raises(ValueError, match="split"):
+        BatchFrameDecoder(mesh=mesh).decode(EncodedChunkStream.from_bytes(data))
     assert BatchFrameDecoder(pallas_entropy=True, device="cpu").device_entropy
 
 

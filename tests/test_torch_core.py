@@ -73,7 +73,8 @@ def test_errors_copy_has_the_five_variants():
 def test_import_leaves_jax_out():
     code = ("import sys, alice_codec_tpu_torch, alice_codec_tpu_torch.alc3, "
             "alice_codec_tpu_torch._build, alice_codec_tpu_torch.native, "
-            "alice_codec_tpu_torch.parallel, alice_codec_tpu_torch.utils.golden, "
+            "alice_codec_tpu_torch.parallel, alice_codec_tpu_torch.parallel.mesh, "
+            "alice_codec_tpu_torch.streaming, alice_codec_tpu_torch.utils.golden, "
             "alice_codec_tpu_torch.ops.rans, alice_codec_tpu_torch.ops.rans_device, "
             "alice_codec_tpu_torch.ops.kernels.rans_nway, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

@@ -708,3 +708,56 @@ def test_alc2_full_width_device_entropy_matches_host(cuda):
     out_dev = BatchFrameDecoder(device_entropy=True).decode(s_host, as_numpy=False)
     out_host = BatchFrameDecoder().decode(s_dev, as_numpy=False)
     assert _equal(out_dev, out_host)
+
+
+# ── batches and chunk meshes ────────────────────────────────────
+
+
+def test_batch_goldens_on_card(cuda):
+    """The JAX-written batch goldens on the card: each batch re-encodes to
+    the same containers (the sparse caches and the active-set re-dispatch
+    included) and decodes to JAX's decode_batch, both ways; a case's mesh
+    repeats the card as often as the JAX mesh has devices."""
+    import torch_batch_goldens as tg
+
+    for spec in tg.CASES.values():
+        tg.check_encodes(spec, tg.run(spec, tg.cpu_mesh(spec["mesh"], cuda), cuda))
+        tg.check_decodes(spec, cuda)
+
+
+@pytest.mark.parametrize("quality, sparse", [(90, False), (90, True), (50, True)])
+def test_batch_and_mesh_on_card_match_cpu(cuda, quality, sparse):
+    """A batch of two on the card: K1 / K4 once a chunk, the word-rANS
+    kernels (and, sparse, K5 / K6) once a batch; the
+    containers and RGB are the CPU's (the plain versions'), also over
+    ``chunk_mesh()`` against as many CPU entries."""
+    from alice_codec_tpu_torch.parallel import chunk_mesh
+    from chip_smoke import golden_input
+
+    rgb = np.stack([golden_input("chunk", s, (4, 64, 64)) for s in (0, 1)])
+    card = Alc3Codec(quality, s_seg=8, sparse=sparse)
+    cpu = Alc3Codec(quality, s_seg=8, sparse=sparse, device="cpu")
+    reset_launches()
+    chunks = card.encode_batch(rgb)
+    out = card.decode_batch(chunks)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    assert n["encode_words"] == n["decode_words"] == 1
+    assert n["forward_quant"] == n["inverse_dequant"] == 2
+    # at 4×64×64 every sparse plane is sparse (its values fill far fewer
+    # rows than DENSE_ROW_FRAC of its padded plane)
+    assert n["compact"] == n["expand"] == int(sparse)
+    cpu_chunks = cpu.encode_batch(rgb)
+    assert ([Alc3Codec.to_bytes(c) for c in chunks]
+            == [Alc3Codec.to_bytes(c) for c in cpu_chunks])
+    assert _equal(out.cpu(), cpu.decode_batch(cpu_chunks))
+    mesh = chunk_mesh()
+    cpu_mesh = chunk_mesh(devices=["cpu"] * mesh.size)
+    rgb = np.stack([golden_input("chunk", s, (4, 64, 64))
+                    for s in range(mesh.size * max(1, 2 // mesh.size))])
+    m_chunks = card.encode_batch(rgb, mesh=mesh)
+    c_chunks = cpu.encode_batch(rgb, mesh=cpu_mesh)
+    assert ([Alc3Codec.to_bytes(c) for c in m_chunks]
+            == [Alc3Codec.to_bytes(c) for c in c_chunks])
+    assert _equal(card.decode_batch(m_chunks, mesh=mesh).cpu(),
+                  cpu.decode_batch(c_chunks, mesh=cpu_mesh))
