@@ -16,6 +16,9 @@ import enum
 
 from .errors import DimensionOverflow, InvalidBitstream
 
+#: Library version (the JAX package's, reference src/python.rs:274-277).
+VERSION = "0.1.2"
+
 #: Default chunk size for the 3D wavelet (frames). Reference: src/lib.rs:110.
 DEFAULT_CHUNK_SIZE = 64
 

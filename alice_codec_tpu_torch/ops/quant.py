@@ -4,7 +4,10 @@ reference src/quant.rs:89-110, 377-505, 547-600).
 
 Device functions take tensors; :class:`AnalyticalRDO` is host float
 code, a verbatim copy of the JAX package's, so both packages pick the
-same per-band steps from the same moments.
+same per-band steps from the same moments.  The scalar and NumPy
+quantizers (:class:`Quantizer`, :class:`FastQuantizer`,
+:func:`quantize_subband`, :func:`dequantize_subband`) are host code,
+copied too.
 
 Per-band functions work on the INTERLEAVED single-level layout: the band
 of a coefficient is its index parity (bit y = h&1, x = w&1, t = t&1,
@@ -22,11 +25,14 @@ import numpy as np
 import torch
 
 from ..core import SubBand3D
+from ..errors import InvalidQuantStep
 
 __all__ = ["quantize", "dequantize", "to_symbols", "from_symbols",
            "to_symbols16", "from_symbols16", "build_histogram",
            "band_index_inter", "quantize_bands_inter",
-           "dequantize_bands_inter", "band_moments_inter", "AnalyticalRDO"]
+           "dequantize_bands_inter", "band_moments_inter", "Quantizer",
+           "FastQuantizer", "AnalyticalRDO", "quantize_subband",
+           "dequantize_subband"]
 
 
 def quantize(values: torch.Tensor, step, dead_zone) -> torch.Tensor:
@@ -141,7 +147,112 @@ def band_moments_inter(coeffs: torch.Tensor):
     return s1, s2
 
 
-# ── host RDO (a verbatim copy of the JAX package's) ─────────────
+# ── host quantizers and RDO (verbatim copies of the JAX package's) ──
+
+
+class Quantizer:
+    """Dead-zone quantizer (reference src/quant.rs:57-146).
+
+    >>> q = Quantizer(8)
+    >>> q.quantize(20)
+    2
+    >>> q.dequantize(2)
+    16
+    """
+
+    __slots__ = ("step", "dead_zone")
+
+    def __init__(self, step: int, dead_zone: int | None = None):
+        self.step = int(step)
+        self.dead_zone = int(step if dead_zone is None else dead_zone)
+
+    @classmethod
+    def with_dead_zone(cls, step: int, dead_zone: int) -> "Quantizer":
+        return cls(step, dead_zone)
+
+    def quantize(self, value: int) -> int:
+        av = abs(value)
+        if av < self.dead_zone:
+            return 0
+        q = (av - (self.dead_zone >> 1)) // self.step
+        return -q if value < 0 else q
+
+    def dequantize(self, qvalue: int) -> int:
+        return 0 if qvalue == 0 else qvalue * self.step
+
+    def quantize_buffer(self, values: np.ndarray) -> np.ndarray:
+        """Vectorized NumPy quantize (reference src/quant.rs:117-128)."""
+        v = np.asarray(values, np.int32)
+        av = np.abs(v)
+        q = (av - (self.dead_zone >> 1)) // np.int32(self.step)
+        return np.where(av < self.dead_zone, 0, np.sign(v) * q).astype(np.int32)
+
+    def dequantize_buffer(self, qvalues: np.ndarray) -> np.ndarray:
+        return (np.asarray(qvalues, np.int32) * np.int32(self.step)).astype(np.int32)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"Quantizer(step={self.step}, dead_zone={self.dead_zone})"
+
+
+class FastQuantizer:
+    """Magic-number-division quantizer (reference src/quant.rs:171-332).
+
+    Precomputes ``reciprocal = ceil(2^(32+extra) / step)`` and divides via a
+    64-bit multiply + shift.  Bit-identical to :class:`Quantizer` for all
+    inputs (the round-up magic is exact for u32 dividends).
+    """
+
+    __slots__ = ("reciprocal", "shift", "step", "dead_zone")
+
+    def __init__(self, step: int, dead_zone: int | None = None):
+        step = int(step)
+        if step <= 0:
+            raise InvalidQuantStep(step)
+        # extra_bits = 32 - leading_zeros(step as u32) = floor(log2(step)) + 1
+        extra_bits = step.bit_length()
+        self.shift = 32 + extra_bits
+        power = 1 << self.shift
+        self.reciprocal = (power + step - 1) // step  # ceil division
+        self.step = step
+        self.dead_zone = int(step if dead_zone is None else dead_zone)
+
+    @classmethod
+    def with_dead_zone(cls, step: int, dead_zone: int) -> "FastQuantizer":
+        return cls(step, dead_zone)
+
+    def _fast_div(self, x: int) -> int:
+        return ((x * self.reciprocal) >> self.shift) & 0xFFFFFFFF
+
+    def quantize(self, value: int) -> int:
+        av = abs(value)
+        if av < self.dead_zone:
+            return 0
+        adjusted = (av - (self.dead_zone >> 1)) & 0xFFFFFFFF
+        q_abs = self._fast_div(adjusted)
+        return -q_abs if value < 0 else q_abs
+
+    def dequantize(self, qvalue: int) -> int:
+        return 0 if qvalue == 0 else qvalue * self.step
+
+    def quantize_buffer(self, values: np.ndarray) -> np.ndarray:
+        """Vectorized magic-number quantize in uint64 NumPy."""
+        v = np.asarray(values, np.int64)
+        av = np.abs(v)
+        adjusted = (av - (self.dead_zone >> 1)).astype(np.uint64)
+        prod = adjusted * np.uint64(self.reciprocal)
+        # reciprocal < 2^34 and adjusted < 2^32 can overflow u64 for huge
+        # inputs; real coefficient magnitudes keep the product in range
+        # exactly as the reference's u64 arithmetic does.
+        q = (prod >> np.uint64(self.shift)).astype(np.int64)
+        out = np.where(av < self.dead_zone, 0, np.sign(v) * q)
+        return out.astype(np.int32)
+
+    def dequantize_buffer(self, qvalues: np.ndarray) -> np.ndarray:
+        return (np.asarray(qvalues, np.int32) * np.int32(self.step)).astype(np.int32)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"FastQuantizer(step={self.step}, dead_zone={self.dead_zone})"
+
 
 
 class AnalyticalRDO:
@@ -168,6 +279,17 @@ class AnalyticalRDO:
         bpp = fma(q * q, 23.9, 0.1) if fma else q * q * 23.9 + 0.1
         return cls(bpp, quality)
 
+    @staticmethod
+    def estimate_variance(coeffs) -> float:
+        """Population variance in f64, floored at 1.0 (src/quant.rs:415-435)."""
+        c = np.asarray(coeffs, np.int64)
+        if c.size == 0:
+            return 1.0
+        inv_n = 1.0 / float(c.size)
+        mean = float(c.sum()) * inv_n
+        var = float(((c.astype(np.float64) - mean) ** 2).sum()) * inv_n
+        return max(var, 1.0)
+
     def compute_optimal_lambda(self, variance: float) -> float:
         return (6.0 * math.log(2.0) * variance) / self.target_bpp
 
@@ -175,6 +297,21 @@ class AnalyticalRDO:
         # libm::round rounds half away from zero, unlike Python's round().
         step = math.sqrt(12.0 * lam)
         return max(int(math.floor(step + 0.5)), 1)
+
+    def compute_quantizer(self, coeffs, subband: SubBand3D) -> Quantizer:
+        variance = self.estimate_variance(coeffs)
+        lam = self.compute_optimal_lambda(variance)
+        base_step = self.lambda_to_step(lam)
+        step = max(base_step * subband.quant_strength, 1)
+        dead_zone = step + step // 2
+        return Quantizer.with_dead_zone(step, dead_zone)
+
+    def compute_all_quantizers(self, subbands) -> list[Quantizer]:
+        """Quantizers for the 8 sub-bands of a 3D decomposition (src/quant.rs:472-490)."""
+        return [
+            self.compute_quantizer(coeffs, band)
+            for coeffs, band in zip(subbands, SubBand3D, strict=True)
+        ]
 
     @staticmethod
     def variance_from_moments(n: int, s1: int, s2: int) -> float:
@@ -208,3 +345,13 @@ class AnalyticalRDO:
             steps[int(band)] = s
             dzs[int(band)] = d
         return steps, dzs
+
+
+def quantize_subband(coeffs, quantizer: Quantizer) -> np.ndarray:
+    """Quantize sub-band coefficients (reference src/quant.rs:518-524)."""
+    return quantizer.quantize_buffer(coeffs)
+
+
+def dequantize_subband(coeffs, quantizer: Quantizer) -> np.ndarray:
+    """Dequantize sub-band coefficients (reference src/quant.rs:531-537)."""
+    return quantizer.dequantize_buffer(coeffs)

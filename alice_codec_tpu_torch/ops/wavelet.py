@@ -30,20 +30,29 @@ touching the rest of the volume.
 The reference layout (``[low | high]`` along each axis, the `.alc` and
 ALC2 wires; reference src/wavelet.rs:220-233) holds the same values: on
 even dimensions it is a fixed permutation of the interleaved one
-(:func:`deinterleave_3d` / :func:`interleave_3d`), so its forward and
-inverse transforms (:func:`forward_3d` / :func:`inverse_3d`) are the
-interleaved ones composed with that permutation.
+(:func:`deinterleave_3d` / :func:`interleave_3d`, the codec's route).
+Its transforms on any size (:func:`forward_1d` / :func:`inverse_1d` and
+their 2D / 3D / multi-level compositions, the classes
+:class:`Wavelet1D` / :class:`Wavelet2D` / :class:`Wavelet3D`) are the
+JAX package's even/odd-split lifts, with the reference's odd-length
+quirks: for odd n the forward leaves the last slot zero and the inverse
+zero-fills the trailing even slot.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..core import WaveletType
+from .._device import resolve_device
+from ..core import SubBand3D, WaveletType
 
-__all__ = ["LIFTING_STEPS", "forward_1d_inter", "inverse_1d_inter",
-           "forward_3d_inter", "inverse_3d_inter", "deinterleave_3d",
-           "interleave_3d", "forward_3d", "inverse_3d"]
+__all__ = ["LIFTING_STEPS", "forward_1d", "inverse_1d", "forward_2d",
+           "inverse_2d", "forward_3d", "inverse_3d", "forward_3d_multi",
+           "inverse_3d_multi", "extract_subbands_3d", "combine_subbands_3d",
+           "forward_1d_inter", "inverse_1d_inter", "forward_3d_inter",
+           "inverse_3d_inter", "deinterleave_3d", "interleave_3d",
+           "Wavelet1D", "Wavelet2D", "Wavelet3D"]
 
 # (coeff, predict) pairs per filter; coeff scaled by 2^12.
 LIFTING_STEPS: dict[WaveletType, tuple[tuple[int, bool], ...]] = {
@@ -226,15 +235,273 @@ def interleave_3d(x: torch.Tensor) -> torch.Tensor:
     return v.reshape(x.shape)
 
 
+# ── the reference layout on any size ────────────────────────────
+
+
+def _sl(x: torch.Tensor, ax: int, sl: slice) -> torch.Tensor:
+    """``x[..., sl, ...]`` with the slice at ``ax`` (non-negative)."""
+    idx = [slice(None)] * x.ndim
+    idx[ax] = sl
+    return x[tuple(idx)]
+
+
+def _lift(even: torch.Tensor, odd: torch.Tensor, coeff: int, predict: bool,
+          ax: int, undo: bool = False):
+    """One lifting step on split even/odd tensors along ``ax``; ``undo``
+    subtracts the delta instead of adding it (the exact inverse).
+
+    Predict (src/wavelet.rs:180-197): odd[i] += Δ(even[i] + even[i+1]),
+    mirroring the last even at the right edge.
+    Update (src/wavelet.rs:201-217): even[i] += Δ(odd[i-1] + odd[i]),
+    mirroring odd[0] at the left edge.
+    """
+    def step(x, d):
+        return x - d if undo else x + d
+
+    ne, no = even.shape[ax], odd.shape[ax]
+    if predict:
+        if ne > no:
+            # Odd-length signal: every odd sample has a real right neighbor.
+            odd = step(odd, _delta(_sl(even, ax, slice(None, -1))
+                                   + _sl(even, ax, slice(1, None)), coeff))
+        else:
+            even_r = torch.cat([_sl(even, ax, slice(1, None)),
+                                _sl(even, ax, slice(-1, None))], ax)
+            odd = step(odd, _delta(even + even_r, coeff))
+    else:
+        odd_l = torch.cat([_sl(odd, ax, slice(None, 1)),
+                           _sl(odd, ax, slice(None, -1))], ax)
+        delta = _delta(odd_l + odd, coeff)
+        if ne > no:
+            # Odd-length: the trailing even sample is never updated.
+            even = torch.cat([step(_sl(even, ax, slice(None, -1)), delta),
+                              _sl(even, ax, slice(-1, None))], ax)
+        else:
+            even = step(even, delta)
+    return even, odd
+
+
+def forward_1d(x: torch.Tensor, wavelet: WaveletType,
+               axis: int = -1) -> torch.Tensor:
+    """Forward transform of an int32 tensor along ``axis`` (lengths < 2
+    are returned as they are): ``[low-pass..., high-pass...]``, the
+    reference's deinterleave (src/wavelet.rs:220-233); for odd n only
+    n//2 evens are copied and the final slot stays zero."""
+    ax = axis % x.ndim
+    n = x.shape[ax]
+    if n < 2:
+        return x
+    even = _sl(x, ax, slice(0, None, 2))
+    odd = _sl(x, ax, slice(1, None, 2))
+    for coeff, predict in LIFTING_STEPS[WaveletType(wavelet)]:
+        even, odd = _lift(even, odd, coeff, predict, ax)
+    if n % 2 == 1:
+        zero = torch.zeros_like(_sl(even, ax, slice(None, 1)))
+        return torch.cat([_sl(even, ax, slice(None, -1)), odd, zero], ax)
+    return torch.cat([even, odd], ax)
+
+
+def inverse_1d(x: torch.Tensor, wavelet: WaveletType, axis: int = -1,
+               *, exact: bool = False) -> torch.Tensor:
+    """Inverse of :func:`forward_1d` along ``axis``: ``exact=False``
+    replays the steps with negated coefficients (reference semantics, ±1
+    approximate), ``exact=True`` subtracts the identical forward delta.
+    For odd n the trailing even slot is zero-filled (src/wavelet.rs:236-248)."""
+    ax = axis % x.ndim
+    n = x.shape[ax]
+    if n < 2:
+        return x
+    half = n // 2
+    if n % 2 == 0:
+        even = _sl(x, ax, slice(None, half))
+        odd = _sl(x, ax, slice(half, None))
+    else:
+        zero = torch.zeros_like(_sl(x, ax, slice(None, 1)))
+        even = torch.cat([_sl(x, ax, slice(None, half)), zero], ax)
+        odd = _sl(x, ax, slice(half, 2 * half))
+    for coeff, predict in reversed(LIFTING_STEPS[WaveletType(wavelet)]):
+        if exact:  # subtract the same delta the forward step added
+            even, odd = _lift(even, odd, coeff, predict, ax, undo=True)
+        else:
+            even, odd = _lift(even, odd, -coeff, predict, ax)
+    # interleave even/odd back: stack on a new axis after ``ax``, fold it in
+    body = torch.stack([_sl(even, ax, slice(None, half)), odd], dim=ax + 1)
+    body = body.reshape(*x.shape[:ax], 2 * half, *x.shape[ax + 1:])
+    if n % 2 == 1:
+        return torch.cat([body, _sl(even, ax, slice(-1, None))], ax)
+    return body
+
+
+def forward_2d(image: torch.Tensor, wavelet: WaveletType) -> torch.Tensor:
+    """2D forward on ``(..., H, W)``: rows then columns (reference
+    src/wavelet.rs:292-316)."""
+    return forward_1d(forward_1d(image, wavelet, -1), wavelet, -2)
+
+
+def inverse_2d(image: torch.Tensor, wavelet: WaveletType, *,
+               exact: bool = False) -> torch.Tensor:
+    """2D inverse: columns then rows (reference src/wavelet.rs:319-340)."""
+    image = inverse_1d(image, wavelet, -2, exact=exact)
+    return inverse_1d(image, wavelet, -1, exact=exact)
+
+
 def forward_3d(volume: torch.Tensor, wavelet: WaveletType) -> torch.Tensor:
-    """Single-level 3D forward in the reference layout on int32
-    ``(C, T, H, W)`` with even dims (rows, columns, then time; reference
-    src/wavelet.rs:392-438)."""
-    return deinterleave_3d(forward_3d_inter(volume, wavelet))
+    """Single-level 3D forward in the reference layout on int32 ``(..., T,
+    H, W)`` of any size: rows, columns, then time (reference
+    src/wavelet.rs:392-438).  On even dims it equals
+    ``deinterleave_3d(forward_3d_inter(volume))``."""
+    for ax in (-1, -2, -3):
+        volume = forward_1d(volume, wavelet, ax)
+    return volume
 
 
 def inverse_3d(volume: torch.Tensor, wavelet: WaveletType, *,
                exact: bool = False) -> torch.Tensor:
     """Inverse of :func:`forward_3d` (time, columns, then rows;
     src/wavelet.rs:441-484): compat ±1 replay, or exact undo."""
-    return inverse_3d_inter(interleave_3d(volume), wavelet, exact=exact)
+    for ax in (-3, -2, -1):
+        volume = inverse_1d(volume, wavelet, ax, exact=exact)
+    return volume
+
+
+def _check_levels(volume: torch.Tensor, levels: int) -> None:
+    t, h, w = volume.shape[-3:]
+    if any(d % (1 << levels) for d in (t, h, w)):
+        raise ValueError(
+            f"dims {(t, h, w)} not divisible by 2^{levels} for "
+            f"{levels}-level decomposition")
+
+
+def forward_3d_multi(volume: torch.Tensor, wavelet: WaveletType,
+                     levels: int = 1) -> torch.Tensor:
+    """Multi-level 3D decomposition: level k re-decomposes the previous
+    level's LLL octant in place (every dim divisible by ``2**levels``);
+    ``levels=1`` is :func:`forward_3d`."""
+    if levels < 1:
+        return volume
+    _check_levels(volume, levels)
+    t, h, w = volume.shape[-3:]
+    out = forward_3d(volume, wavelet)
+    for k in range(1, levels):
+        box = (..., slice(t >> k), slice(h >> k), slice(w >> k))
+        out[box] = forward_3d(out[box], wavelet)
+    return out
+
+
+def inverse_3d_multi(volume: torch.Tensor, wavelet: WaveletType,
+                     levels: int = 1, *, exact: bool = False) -> torch.Tensor:
+    """Inverse of :func:`forward_3d_multi` (deepest level first)."""
+    if levels < 1:
+        return volume
+    t, h, w = volume.shape[-3:]
+    out = volume.clone()
+    for k in range(levels - 1, 0, -1):
+        box = (..., slice(t >> k), slice(h >> k), slice(w >> k))
+        out[box] = inverse_3d(out[box], wavelet, exact=exact)
+    return inverse_3d(out, wavelet, exact=exact)
+
+
+def _band_box(band: SubBand3D, ht: int, hh: int, hw: int) -> tuple:
+    """Index of ``band``'s octant; letters are (y, x, t) per the
+    reference enum (src/lib.rs:113-132)."""
+    yh, xh, th = (int(band) >> 2) & 1, (int(band) >> 1) & 1, int(band) & 1
+    return (..., slice(th * ht, (th + 1) * ht), slice(yh * hh, (yh + 1) * hh),
+            slice(xh * hw, (xh + 1) * hw))
+
+
+def extract_subbands_3d(volume: torch.Tensor) -> dict:
+    """The 8 sub-bands of a single-level :func:`forward_3d` volume with
+    even dims: ``{SubBand3D: (..., T/2, H/2, W/2) view}``."""
+    t, h, w = volume.shape[-3:]
+    return {band: volume[_band_box(band, t // 2, h // 2, w // 2)]
+            for band in SubBand3D}
+
+
+def combine_subbands_3d(bands: dict, *, like=None) -> torch.Tensor:
+    """Inverse of :func:`extract_subbands_3d`: reassemble the full volume
+    (``like`` is accepted for the JAX package's signature and unused)."""
+    sample = bands[SubBand3D.LLL]
+    ht, hh, hw = sample.shape[-3:]
+    vol = sample.new_zeros((*sample.shape[:-3], 2 * ht, 2 * hh, 2 * hw))
+    for band, data in bands.items():
+        vol[_band_box(band, ht, hh, hw)] = data
+    return vol
+
+
+# ── Object API mirroring the reference types ────────────────────
+
+
+class Wavelet1D:
+    """1D lifting wavelet (reference src/wavelet.rs:47-249), computing on
+    ``device`` (the CUDA card unless given another); NumPy in and out.
+
+    >>> import numpy as np
+    >>> w = Wavelet1D.cdf53(device="cpu")
+    >>> sig = np.array([10, 20, 30, 40, 50, 60, 70, 80], np.int32)
+    >>> bool(np.array_equal(w.inverse(w.forward(sig)), sig))
+    True
+    """
+
+    def __init__(self, wavelet: WaveletType, *, device=None):
+        self.wavelet = WaveletType(wavelet)
+        self.device = resolve_device(device)
+
+    @classmethod
+    def cdf97(cls, *, device=None):
+        return cls(WaveletType.CDF97, device=device)
+
+    @classmethod
+    def cdf53(cls, *, device=None):
+        return cls(WaveletType.CDF53, device=device)
+
+    @classmethod
+    def haar(cls, *, device=None):
+        return cls(WaveletType.HAAR, device=device)
+
+    @classmethod
+    def new(cls, wavelet_1d: "Wavelet1D"):
+        return cls(wavelet_1d.wavelet, device=wavelet_1d.device)
+
+    @property
+    def steps(self) -> tuple[tuple[int, bool], ...]:
+        return LIFTING_STEPS[self.wavelet]
+
+    def _run(self, data, dims, fn, **kw) -> np.ndarray:
+        """``fn`` on ``data`` as int32 on the device; a flat input is
+        viewed as ``dims`` and the result has the input's shape."""
+        arr = np.array(data, np.int32)  # a copy: torch takes only writable arrays
+        x = torch.as_tensor(arr, device=self.device)
+        if x.ndim == 1 and len(dims) > 1:
+            x = x.reshape(dims)
+        out = fn(x, self.wavelet, **kw)
+        return out.cpu().numpy().reshape(arr.shape)
+
+    def forward(self, signal) -> np.ndarray:
+        return self._run(signal, (), forward_1d)
+
+    def inverse(self, signal, *, exact: bool = False) -> np.ndarray:
+        return self._run(signal, (), inverse_1d, exact=exact)
+
+
+class Wavelet2D(Wavelet1D):
+    """2D wavelet: rows then columns (reference src/wavelet.rs:265-341)."""
+
+    def forward(self, image, width: int | None = None,
+                height: int | None = None) -> np.ndarray:
+        return self._run(image, (height, width), forward_2d)
+
+    def inverse(self, image, width: int | None = None, height: int | None = None,
+                *, exact: bool = False) -> np.ndarray:
+        return self._run(image, (height, width), inverse_2d, exact=exact)
+
+
+class Wavelet3D(Wavelet1D):
+    """3D wavelet over (t, y, x) video volumes (reference src/wavelet.rs:359-485)."""
+
+    def forward(self, volume, width: int | None = None, height: int | None = None,
+                depth: int | None = None) -> np.ndarray:
+        return self._run(volume, (depth, height, width), forward_3d)
+
+    def inverse(self, volume, width: int | None = None, height: int | None = None,
+                depth: int | None = None, *, exact: bool = False) -> np.ndarray:
+        return self._run(volume, (depth, height, width), inverse_3d, exact=exact)

@@ -73,6 +73,22 @@ Phases (any failure raises and exits non-zero before the last line):
    ``mesh=`` equal to the one without; then 136 frames of 1080p (three
    chunks) through ``encode_stream`` into an `.alcs3` file and back
    through ``decode_stream``, equal to the per-chunk decode;
+4c. the two routes of ``bench.py`` that the quality, rate and
+   segmentation layers complete, the launch counts set to 0 just before
+   each roundtrip (each encode) and read just after: config3
+   (``config3_cdf97_sweep``), ``Alc3Codec(q, "cdf97")`` over the
+   64×1080×1920 chunk for q = 50, 55, …, 95, each roundtrip K1-K4 once
+   and no other kernel, the containers and RGB at q = 50 and 95 equal to
+   the plain pipeline's, the centre frame's ``psnr_device`` and
+   ``ssim_device`` on the card held to the host f64 ``psnr`` / ``ssim``
+   (1e-3 dB, 1e-4) and to their CPU runs, PSNR monotone within 0.1 dB,
+   chunks/s over q = 55-95 as ``bench.py`` reckons it; config5
+   (``config5_rate_controlled_4k``), a 16×2160×3840 chunk coded six times
+   at the quality a ``RateController`` (60 Mbit/s at 30 fps) recommends,
+   each encode K1 and K2 once, the quality sequence and the sizes those of
+   the plain pipeline (its containers compared at the first and the last
+   distinct quality), the last chunk decoded and ``segment_by_motion`` on
+   its frames 1 and 0 on the card equal to the CPU's; frames/s;
 5. timings (chunks/s, peak memory) of each path, one roundtrip of each
    under torch.profiler (device time by kernel), the ``kernels`` JSON
    line and the final ``{"ok": true, ...}`` line.
@@ -104,7 +120,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 T, H, W = 64, 1080, 1920   # the main paths' chunk
 ALC2_CHUNKS, ALC2_LANES = 4, 4096  # bench.py config4_alc_batched_decode
-T4K, H4K, W4K = 16, 2160, 3840  # the 4K check's chunk
+T4K, H4K, W4K = 16, 2160, 3840  # the 4K check's chunk (and bench.py config5's)
+CONFIG3_Q = tuple(range(50, 96, 5))  # bench.py config3_cdf97_sweep
+CONFIG5_CHUNKS = 6                 # bench.py config5_rate_controlled_4k
 QUALITY = 90
 SPARSE_Q = (90, 50)        # the north star, and a quality with sparse planes
 
@@ -246,6 +264,184 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
+def only_launches(launches: dict, want: dict) -> bool:
+    """Every kernel launched exactly as often as ``want`` says (0 if absent)."""
+    return all(launches[k] == want.get(k, 0) for k in launches)
+
+
+def bench_routes(rgb, rgb5_np, card: str) -> dict:
+    """Phase 4c: ``bench.py``'s config3 (the cdf97 sweep with device PSNR /
+    SSIM, over the (T, H, W, 3) chunk ``rgb`` on the card) and config5
+    (rate-controlled encodes of ``rgb5_np``, a 4K chunk, and motion
+    segmentation of the last one's frames); raises on any mismatch.
+    Returns the two routes' launch counts by path."""
+    import numpy as np
+    import torch
+
+    from alice_codec_tpu_torch import (Alc3Codec, RateControlConfig,
+                                       RateController, psnr,
+                                       segment_by_motion, ssim)
+    from alice_codec_tpu_torch.metrics import psnr_device
+    from alice_codec_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from alice_codec_tpu_torch.ssim import ssim_device
+
+    by_path = {}
+    t, h, w = rgb.shape[:3]
+
+    resident = torch.cuda.memory_allocated() / 2**30
+    # config3: the cdf97 sweep over ``rgb``
+    mid = t // 2
+    src_mid = rgb[mid].cpu()
+    rows, total, peak3 = [], {}, 0.0
+    for q in CONFIG3_Q:
+        codec = Alc3Codec(q, "cdf97")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        chunk = codec.encode(rgb)
+        out = codec.decode(chunk)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        peak3 = max(peak3, torch.cuda.max_memory_allocated() / 2**30)
+        launches = launch_counts()
+        check(only_launches(launches, {"forward_quant": 1, "encode_words": 1,
+                                       "decode_words": 1, "inverse_dequant": 1}),
+              f"config3 q={q}: expected K1-K4 once each, got {launches}")
+        total = {k: total.get(k, 0) + n for k, n in launches.items()}
+        if q in (CONFIG3_Q[0], CONFIG3_Q[-1]):
+            with plain_kernels():
+                p_codec = Alc3Codec(q, "cdf97")
+                p_chunk = p_codec.encode(rgb)
+                same = Alc3Codec.to_bytes(chunk) == Alc3Codec.to_bytes(p_chunk)
+                check(same, f"config3 q={q}: container differs from the "
+                            f"plain pipeline's")
+                check(bool(torch.equal(out, p_codec.decode(p_chunk))),
+                      f"config3 q={q}: RGB differs from the plain pipeline's")
+            del p_chunk
+        bpp = 8.0 * chunk.compressed_size / (t * h * w)
+        del chunk
+        # the centre frame's device metrics, as bench.py takes them
+        out_mid = out[mid]
+        p_dev = float(psnr_device(rgb[mid].reshape(-1), out_mid.reshape(-1)))
+        s_dev = float(ssim_device(rgb[mid, :, :, 1].float(),
+                                  out_mid[:, :, 1].float()))
+        out_mid = out_mid.cpu()
+        p_cpu = float(psnr_device(src_mid.reshape(-1), out_mid.reshape(-1)))
+        s_cpu = float(ssim_device(src_mid[:, :, 1].float(),
+                                  out_mid[:, :, 1].float()))
+        p_host = psnr(src_mid.numpy(), out_mid.numpy())
+        s_host = ssim(src_mid[:, :, 1].numpy(), out_mid[:, :, 1].numpy(), w, h)
+        check(abs(p_dev - p_host) < 1e-3 and abs(s_dev - s_host) < 1e-4,
+              f"config3 q={q}: device PSNR / SSIM {p_dev} / {s_dev} against "
+              f"the host's {p_host} / {s_host}")
+        check(abs(p_dev - p_cpu) < 1e-4 and abs(s_dev - s_cpu) < 1e-5,
+              f"config3 q={q}: device PSNR / SSIM {p_dev} / {s_dev} against "
+              f"their CPU runs {p_cpu} / {s_cpu}")
+        rows.append(dict(q=q, psnr_db=p_dev, ssim=s_dev, bpp=bpp,
+                         roundtrip_s=elapsed))
+        del out
+    by_path["config3_cdf97"] = total
+    print(f"config3_cdf97 launches over {len(CONFIG3_Q)} roundtrips: {total}")
+    check(all(b["psnr_db"] >= a["psnr_db"] - 0.1 for a, b in zip(rows, rows[1:])),
+          f"config3: PSNR not monotone: {[r['psnr_db'] for r in rows]}")
+    for r in rows:
+        print(f"config3 q={r['q']}: PSNR {r['psnr_db']:.4f} dB, SSIM "
+              f"{r['ssim']:.6f} (centre frame, on the card), {r['bpp']:.4f} "
+              f"bpp, roundtrip {r['roundtrip_s'] * 1e3:.3f} ms (host clock, "
+              f"synchronized) [{card}]")
+    cps = (len(rows) - 1) / sum(r["roundtrip_s"] for r in rows[1:])
+    print(f"config3_cdf97: {cps:.4f} chunks/s over q=55-95 (bench.py's "
+          f"reckoning: one roundtrip each, the first quality left out); "
+          f"containers and RGB at q=50 and q=95 equal to the plain "
+          f"pipeline's; device PSNR / SSIM within 1e-3 dB / 1e-4 of the "
+          f"host f64 metrics and 1e-4 / 1e-5 of their CPU runs; PSNR "
+          f"monotone; peak memory {peak3:.3f} GiB ({resident:.3f} GiB "
+          f"resident before the sweep) [{card}]")
+
+    # config5: rate-controlled 4K, CONFIG5_CHUNKS encodes of one input
+    rgb5 = torch.as_tensor(rgb5_np, device=rgb.device)
+    t5, h5, w5 = rgb5.shape[:3]
+    torch.cuda.reset_peak_memory_stats()
+    target = dict(target_bitrate_kbps=60_000, framerate=30.0)
+    ctrl = RateController(RateControlConfig(**target))
+    codecs = {}
+    q0 = ctrl.recommended_quality
+    codecs[q0] = Alc3Codec(q0, "cdf53")
+    _ = codecs[q0].encode(rgb5).compressed_size  # warm-up
+    qualities, sizes, total = [], [], {}
+    start = time.perf_counter()
+    for _ in range(CONFIG5_CHUNKS):
+        q = ctrl.recommended_quality
+        qualities.append(q)
+        codec = codecs.setdefault(q, Alc3Codec(q, "cdf53"))
+        reset_launches()
+        chunk5 = codec.encode(rgb5)
+        size_bits = chunk5.compressed_size * 8
+        launches = launch_counts()
+        check(only_launches(launches, {"forward_quant": 1, "encode_words": 1}),
+              f"config5 q={q}: expected K1 and K2 once, got {launches}")
+        total = {k: total.get(k, 0) + n for k, n in launches.items()}
+        sizes.append(size_bits // 8)
+        for _ in range(t5):
+            ctrl.update(size_bits // t5)
+    elapsed = time.perf_counter() - start
+    fps = CONFIG5_CHUNKS * t5 / elapsed
+    reset_launches()
+    frames = codecs[qualities[-1]].decode(chunk5, as_numpy=True)
+    launches = launch_counts()
+    check(only_launches(launches, {"decode_words": 1, "inverse_dequant": 1}),
+          f"config5 decode: expected K3 and K4 once, got {launches}")
+    total = {k: total.get(k, 0) + n for k, n in launches.items()}
+    by_path["config5_4k"] = total
+    peak5 = torch.cuda.max_memory_allocated() / 2**30
+    print(f"config5_4k launches over {CONFIG5_CHUNKS} encodes and one "
+          f"decode: {total}")
+    # the plain pipeline: one encode a distinct quality (the input is the
+    # same each chunk), the controller driven by its sizes
+    distinct = sorted(set(qualities), key=qualities.index)
+    ends = (distinct[0], distinct[-1])
+    data5 = {q: Alc3Codec.to_bytes(codecs[q].encode(rgb5)) for q in ends}
+    plain_sizes = {}
+    with plain_kernels():
+        for q in distinct:
+            p_chunk = Alc3Codec(q, "cdf53").encode(rgb5)
+            plain_sizes[q] = p_chunk.compressed_size
+            if q in ends:
+                check(Alc3Codec.to_bytes(p_chunk) == data5[q],
+                      f"config5 q={q}: container differs from the plain "
+                      f"pipeline's")
+            del p_chunk
+    p_ctrl = RateController(RateControlConfig(**target))
+    p_qualities = []
+    for _ in range(CONFIG5_CHUNKS):
+        q = p_ctrl.recommended_quality
+        check(q in plain_sizes, f"config5: the plain pipeline reaches q={q}, "
+                                f"the card's sequence {qualities} does not")
+        p_qualities.append(q)
+        for _ in range(t5):
+            p_ctrl.update(plain_sizes[q] * 8 // t5)
+    check(p_qualities == qualities and [plain_sizes[q] for q in qualities] == sizes,
+          f"config5: qualities {qualities} / sizes {sizes} against the plain "
+          f"pipeline's {p_qualities} / {[plain_sizes.get(q) for q in p_qualities]}")
+    cur = frames[1, :, :, 1].reshape(-1)
+    ref = frames[0, :, :, 1].reshape(-1)
+    seg = segment_by_motion(cur, ref, w5, h5)
+    seg_cpu = segment_by_motion(cur, ref, w5, h5, device="cpu")
+    check(np.array_equal(seg.mask, seg_cpu.mask) and seg.bbox == seg_cpu.bbox
+          and seg.foreground_count == seg_cpu.foreground_count,
+          "config5: segment_by_motion on the card differs from the CPU's")
+    kbps = size_bits / (t5 / 30.0) / 1000
+    print(f"config5_4k: {fps:.4f} frames/s over {CONFIG5_CHUNKS} encodes of "
+          f"{t5}x{h5}x{w5} (host clock, one size read an encode, after a "
+          f"warm-up encode); qualities {qualities}, sizes {sizes} bytes, equal "
+          f"to the plain pipeline's (containers at q={distinct[0]} and "
+          f"q={distinct[-1]}); final {kbps:.1f} kbit/s; segment_by_motion on "
+          f"frames 1 and 0: {seg.foreground_count} foreground pixels, bbox "
+          f"{seg.bbox}, equal to the CPU's; peak memory {peak5:.3f} GiB [{card}]")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -292,6 +488,7 @@ def main() -> int:
     pool = ThreadPoolExecutor(ALC2_CHUNKS - 1)
     more_chunks = [pool.submit(_test_chunk, T, H, W, seed=i)
                    for i in range(1, ALC2_CHUNKS)]
+    config5_chunk = pool.submit(_test_chunk, T4K, H4K, W4K)
 
     # ── 1. build ────────────────────────────────────────────────
     t0 = time.perf_counter()
@@ -1236,9 +1433,6 @@ def main() -> int:
         psnr = 10 * np.log10(255.0 ** 2 / mse) if mse else float("inf")
         return rgb_np.nbytes * n_chunks / max(payload_bytes, 1), psnr
 
-    def only(launches, want):
-        return all(launches[k] == want.get(k, 0) for k in launches)
-
     # the `.alc` single chunk: encode stage on the card, serial host rANS
     fe, fd = FrameEncoder(QUALITY, "cdf53"), FrameDecoder()
     reset_launches()
@@ -1250,7 +1444,7 @@ def main() -> int:
     t_alc = (t1 - t0, time.perf_counter() - t1)
     launches = launch_counts()
     print(f"alc_q90 launches: {launches}")
-    check(only(launches, {"forward_quant": 1, "inverse_3d": 1}),
+    check(only_launches(launches, {"forward_quant": 1, "inverse_3d": 1}),
           f"alc_q90: expected forward_quant 1 and inverse_3d 1, got {launches}")
     by_path["alc_q90"] = launches
     with plain_kernels():
@@ -1279,8 +1473,9 @@ def main() -> int:
     t_alc2 = (t1 - t0, time.perf_counter() - t1)
     launches = launch_counts()
     print(f"alc2_q90 launches: {launches}")
-    check(only(launches, {"forward_quant": ALC2_CHUNKS, "inverse_3d": ALC2_CHUNKS,
-                          "encode_pack_nway": 1, "decode_nway": 1}),
+    check(only_launches(launches, {"forward_quant": ALC2_CHUNKS,
+                                   "inverse_3d": ALC2_CHUNKS,
+                                   "encode_pack_nway": 1, "decode_nway": 1}),
           f"alc2_q90: expected forward_quant {ALC2_CHUNKS}, inverse_3d "
           f"{ALC2_CHUNKS}, encode_pack_nway 1, decode_nway 1, got {launches}")
     by_path["alc2_q90"] = launches
@@ -1336,7 +1531,7 @@ def main() -> int:
                     "inverse_dequant": 2}
             if name == "batch_sparse_q50":
                 want.update(compact=1, expand=1)
-            check(only(launches, want), f"{name}: expected {want}, got {launches}")
+            check(only_launches(launches, want), f"{name}: expected {want}, got {launches}")
             by_path[name] = launches
             datas = [Alc3Codec.to_bytes(c) for c in chunks]
             with plain_kernels():
@@ -1484,6 +1679,10 @@ def main() -> int:
 
     batches_meshes_streams()
     del batch_np
+    torch.cuda.empty_cache()
+
+    # ── 4c. bench.py config3 and config5 ────────────────────────
+    by_path.update(bench_routes(rgb, config5_chunk.result(), card))
     torch.cuda.empty_cache()
 
     # ── 5. timings ──────────────────────────────────────────────

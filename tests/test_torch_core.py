@@ -76,7 +76,13 @@ def test_import_leaves_jax_out():
             "alice_codec_tpu_torch.parallel, alice_codec_tpu_torch.parallel.mesh, "
             "alice_codec_tpu_torch.streaming, alice_codec_tpu_torch.utils.golden, "
             "alice_codec_tpu_torch.ops.rans, alice_codec_tpu_torch.ops.rans_device, "
-            "alice_codec_tpu_torch.ops.kernels.rans_nway, chip_smoke; "
+            "alice_codec_tpu_torch.ops.kernels.rans_nway, "
+            "alice_codec_tpu_torch.metrics, alice_codec_tpu_torch.ssim, "
+            "alice_codec_tpu_torch.rate_control, alice_codec_tpu_torch.lossless, "
+            "alice_codec_tpu_torch.segment, alice_codec_tpu_torch.container, "
+            "alice_codec_tpu_torch.profiling, alice_codec_tpu_torch.models, "
+            "alice_codec_tpu_torch.models.presets, alice_codec_tpu_torch.ops.quant, "
+            "alice_codec_tpu_torch.ops.wavelet, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('alice_codec_tpu.') or m == 'alice_codec_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

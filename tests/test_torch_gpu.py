@@ -761,3 +761,121 @@ def test_batch_and_mesh_on_card_match_cpu(cuda, quality, sparse):
             == [Alc3Codec.to_bytes(c) for c in c_chunks])
     assert _equal(card.decode_batch(m_chunks, mesh=mesh).cpu(),
                   cpu.decode_batch(c_chunks, mesh=cpu_mesh))
+
+
+# ── quality, rate, segmentation and the reference-layout wavelets ──
+
+
+@pytest.mark.parametrize("shape", [(24, 40), (3, 21, 37), (7, 7), (1080, 1920),
+                                   (64, 96)])
+def test_device_metrics_on_card_match_cpu(cuda, shape):
+    """``psnr_device`` / ``ssim_device`` / ``ms_ssim_device`` on the card
+    against their CPU runs (f32 reductions in another order: 1e-4 dB,
+    1e-5), on uint8 and on float32 planes (bench.py config3's form)."""
+    from alice_codec_tpu_torch.metrics import psnr_device
+    from alice_codec_tpu_torch.ssim import ms_ssim_device, ssim_device
+
+    rng = np.random.default_rng(sum(shape))
+    a = rng.integers(0, 256, shape, dtype=np.uint8)
+    b = np.clip(a.astype(np.int64) + rng.integers(-12, 13, shape), 0, 255
+                ).astype(np.uint8)
+    for x, y in ((a, b), (a.astype(np.float32), b.astype(np.float32))):
+        cx, cy = torch.from_numpy(x), torch.from_numpy(y)
+        gx, gy = cx.to(cuda), cy.to(cuda)
+        p = psnr_device(gx, gy)
+        assert p.device.type == "cuda"
+        assert abs(float(p) - float(psnr_device(cx, cy))) < 1e-4
+        for fn in (ssim_device, ms_ssim_device):
+            got = fn(gx, gy)
+            assert got.device.type == "cuda"
+            np.testing.assert_allclose(got.cpu().numpy(), fn(cx, cy).numpy(),
+                                       rtol=0, atol=1e-5)
+    assert torch.isinf(psnr_device(torch.from_numpy(a).to(cuda),
+                                   torch.from_numpy(a).to(cuda)))
+
+
+@pytest.mark.parametrize("radii", [(0, 0), (2, 1), (3, 2)])
+def test_segmentation_on_card_matches_cpu(cuda, radii):
+    """The motion and chroma mask programs on the card (the default
+    device) give the CPU's masks, bboxes and counts, at 24×40 and 4K."""
+    from alice_codec_tpu_torch import segment
+
+    for h, w in ((24, 40), (2160, 3840)):
+        rng = np.random.default_rng(h)
+        ref = rng.integers(0, 256, (h, w), dtype=np.uint8)
+        cur = np.clip(ref.astype(np.int64) + rng.integers(-30, 31, (h, w)),
+                      0, 255).astype(np.uint8)
+        cur[: h // 4, w - w // 5:] = 255 - cur[: h // 4, w - w // 5:]  # edges
+        cfg = segment.SegmentConfig(dilate_radius=radii[0], erode_radius=radii[1])
+        got = segment.segment_by_motion(cur, ref, w, h, cfg)
+        want = segment.segment_by_motion(cur, ref, w, h, cfg, device="cpu")
+        np.testing.assert_array_equal(got.mask, want.mask)
+        assert (got.bbox, got.foreground_count) == (want.bbox, want.foreground_count)
+        cg = rng.integers(-60, 120, (h, w)).astype(np.int16)
+        for threshold in (-12, 30):
+            mask, bbox, fg = segment.chroma_mask_device(
+                cg, threshold, dilate_radius=radii[0], erode_radius=radii[1])
+            assert mask.device.type == "cuda"
+            c_mask, c_bbox, c_fg = segment.chroma_mask_device(
+                cg, threshold, dilate_radius=radii[0], erode_radius=radii[1],
+                device="cpu")
+            assert _equal(mask.cpu(), c_mask) and _equal(bbox.cpu(), c_bbox)
+            assert int(fg) == int(c_fg)
+
+
+@pytest.mark.parametrize("wt", list(WaveletType))
+def test_reference_wavelets_on_card_match_cpu(cuda, wt):
+    """``Wavelet1D`` / ``2D`` / ``3D`` (the reference layout, any size) and
+    the multi-level transform on the card, bit for bit against the CPU."""
+    from alice_codec_tpu_torch.ops import wavelet
+
+    rng = np.random.default_rng(int(wt))
+    for cls, shape in ((wavelet.Wavelet1D, (3, 17)), (wavelet.Wavelet2D, (37, 70)),
+                       (wavelet.Wavelet3D, (5, 38, 51)), (wavelet.Wavelet3D, (4, 64, 64))):
+        x = rng.integers(-30000, 30000, shape).astype(np.int32)
+        card, cpu = cls(wt), cls(wt, device="cpu")
+        assert card.device.type == "cuda"
+        f = card.forward(x)
+        np.testing.assert_array_equal(f, cpu.forward(x))
+        for exact in (False, True):
+            np.testing.assert_array_equal(card.inverse(f, exact=exact),
+                                          cpu.inverse(f, exact=exact))
+    v = torch.as_tensor(rng.integers(-3000, 3000, (8, 32, 32)).astype(np.int32))
+    got = wavelet.forward_3d_multi(v.to(cuda), wt, 3)
+    assert _equal(got.cpu(), wavelet.forward_3d_multi(v, wt, 3))
+    assert _equal(wavelet.inverse_3d_multi(got, wt, 3, exact=True).cpu(), v)
+
+
+def test_dense_cdf97_on_card_matches_plain(cuda):
+    """bench.py config3's codec in small: a dense level-1 ``cdf97`` chunk on
+    the card launches K1-K4 once each and writes the bytes of, and decodes
+    to the RGB of, the plain pipeline on the CPU, at both ends of the
+    sweep; ``profiling.trace`` records the roundtrip's kernels."""
+    import json as _json
+    import tempfile
+
+    from alice_codec_tpu_torch import profiling
+    from chip_smoke import golden_input
+
+    rgb = golden_input("chunk", 3, (6, 36, 70))
+    for q in (50, 95):
+        card, cpu = Alc3Codec(q, "cdf97", s_seg=16), Alc3Codec(q, "cdf97", s_seg=16,
+                                                               device="cpu")
+        reset_launches()
+        chunk = card.encode(rgb)
+        out = card.decode(chunk)
+        torch.cuda.synchronize()
+        n = launch_counts()
+        assert all(n[k] == (1 if k in ("forward_quant", "encode_words",
+                                       "decode_words", "inverse_dequant") else 0)
+                   for k in n), n
+        cpu_chunk = cpu.encode(rgb)
+        assert Alc3Codec.to_bytes(chunk) == Alc3Codec.to_bytes(cpu_chunk)
+        assert _equal(out.cpu(), cpu.decode(cpu_chunk))
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            card.decode(card.encode(rgb))
+            torch.cuda.synchronize()
+        events = _json.loads((Path(tmp) / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any("decode_words" in n for n in names), sorted(names)[:20]
