@@ -23,6 +23,14 @@ chroma segmentation (:mod:`.segment`), the lossless CDF 5/3 transform
 quantizers, container probing (:mod:`.container`), presets
 (:mod:`.models`) and stage timing (:mod:`.profiling`).
 
+The tools: the command line (:mod:`.cli`, ``alice-codec-torch`` or
+``python -m alice_codec_tpu_torch.cli encode|decode|info``), raw-video IO
+and the `.alcs` chunk stream (:mod:`.utils`), the bridges (:mod:`.bridges`:
+ternary ML inference, the decoded-frame cache, the metrics time series,
+sealing and BLAKE3) and the C ABI shim of the Unity / UE5 wrappers
+(:mod:`.ffi`, built at first use).  With them the port covers every
+module of the JAX package.
+
 Entry points run on the CUDA card unless given ``device="cpu"``; on the
 CPU every kernel is replaced by its plain PyTorch version.
 """

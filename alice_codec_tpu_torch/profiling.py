@@ -2,8 +2,10 @@
 ``alice_codec_tpu/profiling.py``).
 
 * :class:`StageTimer` — wall-clock stage accounting (host clock), a copy
-  of the JAX package's; time device work with the device synchronized
-  inside the stage, since CUDA launches return before the card is done;
+  of the JAX package's, that feeds
+  :class:`~alice_codec_tpu_torch.bridges.db.CodecMetrics` records; time
+  device work with the device synchronized inside the stage, since CUDA
+  launches return before the card is done;
 * :func:`trace` — context manager around ``torch.profiler`` that writes a
   Chrome trace (``trace.json``, viewable in chrome://tracing or Perfetto)
   into ``log_dir``, where the JAX package drives ``jax.profiler``.
@@ -53,11 +55,15 @@ class StageTimer:
 
     def as_metrics(self, name: str, *, timestamp_ms: int, bitrate_bps: float = 0.0,
                    psnr_db: float = 0.0):
-        """A CodecMetrics record for the DB bridge sink: the bridges are
-        not ported yet, so this raises."""
-        raise NotImplementedError(
-            "StageTimer.as_metrics needs the DB bridge (bridges/db.py), "
-            "which the PyTorch port does not have yet")
+        """Build a CodecMetrics record for the DB bridge sink."""
+        from .bridges.db import CodecMetrics
+
+        return CodecMetrics(
+            timestamp_ms=timestamp_ms,
+            bitrate_bps=bitrate_bps,
+            psnr_db=psnr_db,
+            encode_time_us=self.average_us(name),
+        )
 
     def report(self) -> str:
         lines = []

@@ -89,6 +89,24 @@ Phases (any failure raises and exits non-zero before the last line):
    the plain pipeline (its containers compared at the first and the last
    distinct quality), the last chunk decoded and ``segment_by_motion`` on
    its frames 1 and 0 on the card equal to the CPU's; frames/s;
+4d. the tools, over the 64×1080×1920 chunk written once as a raw file,
+   the launch counts set to 0 just before each run and read just after:
+   ``cli.main`` in process — ``encode --format alc3 --sparse -q 50`` (K1,
+   K2, K5 once), ``info`` (no launch) and ``decode`` (K3, K6, K4 once),
+   the file equal to phase 4's ``sparse_q50`` container and the raw output
+   to its RGB; the default `.alc` format at ``-q 90`` (K1, then K7's
+   inverse once), equal to phase 4's `.alc` chunk; ``--chunk-size 32``
+   (K1 and K2 twice, K3 and K4 twice), equal to a per-chunk
+   ``Alc3Codec`` encode and decode —, a ``StageTimer`` around the sparse
+   encode recorded into a ``CodecMetricsSink``; ``python -m
+   alice_codec_tpu_torch.cli`` in subprocesses without ``--device`` on an
+   8×256×256 file, the bytes of ``cli.main``; the C ABI shim through
+   ctypes (``alice_codec_encode`` K1 once, ``alice_codec_decode`` K7's
+   inverse once, the bytes and RGB of phase 4's `.alc`,
+   ``alice_codec_psnr`` within 1e-9 dB of the host ``psnr``); an `.alcs`
+   file of two `.alc` chunks read back, truncated and resumed; the ML
+   bridge on the card against the CPU; a ``FrameCache`` holding the
+   decoded CUDA frames in place; seconds file to file;
 5. timings (chunks/s, peak memory) of each path, one roundtrip of each
    under torch.profiler (device time by kernel), the ``kernels`` JSON
    line and the final ``{"ok": true, ...}`` line.
@@ -439,6 +457,258 @@ def bench_routes(rgb, rgb5_np, card: str) -> dict:
           f"q={distinct[-1]}); final {kbps:.1f} kbit/s; segment_by_motion on "
           f"frames 1 and 0: {seg.foreground_count} foreground pixels, bbox "
           f"{seg.bbox}, equal to the CPU's; peak memory {peak5:.3f} GiB [{card}]")
+    return by_path
+
+
+def tools_routes(rgb_np, sparse50, alc90, card: str) -> dict:
+    """Phase 4d: the tools over the (T, H, W, 3) chunk ``rgb_np``, written
+    once as a raw file — the CLI in process (ALC3 ``--sparse -q 50``, the
+    `.alc` format, ALC3 ``--chunk-size``), the CLI as a module in a
+    subprocess, the C ABI shim through ctypes, an `.alcs` stream, the ML
+    bridge, the frame cache and the metrics sink.  ``sparse50`` is phase 4's
+    ``sparse_q50`` (container bytes, decoded RGB on the card), ``alc90`` its
+    `.alc` chunk (container bytes, flat decoded RGB); raises on any
+    mismatch.  Returns each file-to-file path's launches (encode + decode)."""
+    import ctypes
+    import io
+
+    import numpy as np
+    import torch
+
+    from alice_codec_tpu_torch import Alc3Codec, EncodedChunk, cli, ffi, psnr
+    from alice_codec_tpu_torch.bridges import cache, db, ml
+    from alice_codec_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from alice_codec_tpu_torch.profiling import StageTimer
+    from alice_codec_tpu_torch.utils import (AlcStreamReader, AlcStreamWriter,
+                                             read_raw_rgb, write_raw_rgb)
+
+    t, h, w = rgb_np.shape[:3]
+    dims = ["-W", str(w), "-H", str(h), "-f", str(t)]
+    by_path = {}
+
+    def run(name, argv, want):
+        """``cli.main(argv)`` in process with the launch counts set to 0 just
+        before it and read just after; (launches, seconds, stdout)."""
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        print(f"{name} launches: {launches}")
+        check(code == 0, f"{name}: exit code {code}")
+        check(only_launches(launches, want), f"{name}: expected {want}, got {launches}")
+        return launches, dt, out.getvalue()
+
+    def roundtrip(name, flags, enc_want, dec_want, ref_data, ref_rgb, timer=None):
+        """encode → info → decode of the raw file; the encode inside
+        ``timer``'s "encode" stage where one is given."""
+        f, back = tmp / f"{name}.alc", tmp / f"{name}.rgb"
+        with timer.stage("encode") if timer else contextlib.nullcontext():
+            enc, t_enc, _ = run(f"{name} encode", ["encode", str(raw), "-o", str(f),
+                                                   *dims, *flags], enc_want)
+        check(f.read_bytes() == ref_data, f"{name}: file differs from the codec's container")
+        _, _, info = run(f"{name} info", ["info", str(f)], {})
+        check(f"dimensions: {w}x{h}x" in info, f"{name}: info printed {info!r}")
+        dec, t_dec, _ = run(f"{name} decode", ["decode", str(f), "-o", str(back)], dec_want)
+        check(back.read_bytes() == ref_rgb, f"{name}: decoded file differs from the codec's RGB")
+        by_path[name] = {k: enc[k] + dec[k] for k in enc}
+        print(f"{name}: {f.stat().st_size} file bytes, equal to the codec's container, "
+              f"decoded file equal to its RGB; file to file encode {t_enc:.3f} s, "
+              f"decode {t_dec:.3f} s (host clock, first run) [{card}]")
+        return info
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        raw = tmp / "chunk.rgb"
+        write_raw_rgb(raw, rgb_np)
+        check(np.array_equal(read_raw_rgb(raw, w, h), rgb_np),
+              "the raw file reads back otherwise")
+
+        # ── the CLI in process, each run reset and read apart
+        timer = StageTimer()
+        sparse_rgb = sparse50[1].cpu().numpy()
+        info = roundtrip(
+            "cli_alc3_sparse_q50", ["--format", "alc3", "--sparse", "-q", "50"],
+            {"forward_quant": 1, "encode_words": 1, "compact": 1},
+            {"decode_words": 1, "expand": 1, "inverse_dequant": 1},
+            sparse50[0], sparse_rgb.tobytes(), timer)
+        check("ALC3 (1 chunk(s), sparse)" in info, f"cli info printed {info!r}")
+        roundtrip("cli_alc_q90", ["-q", "90"], {"forward_quant": 1},
+                  {"inverse_3d": 1}, alc90[0], alc90[1].tobytes())
+        half = t // 2
+        codec = Alc3Codec(90)
+        ref = [codec.encode(rgb_np[:half]), codec.encode(rgb_np[half:])]
+        ref_rgb = torch.cat([codec.decode(c) for c in ref]).cpu().numpy().tobytes()
+        roundtrip("cli_alc3_chunked_q90",
+                  ["--format", "alc3", "-q", "90", "--chunk-size", str(half)],
+                  {"forward_quant": 2, "encode_words": 2},
+                  {"decode_words": 2, "inverse_dequant": 2},
+                  Alc3Codec.to_bytes(ref), ref_rgb)
+        del ref, ref_rgb
+
+        # the metrics sink, fed by the stage timer around the CLI encode
+        sink_dir = tmp / "metrics"
+        m = timer.as_metrics("encode", timestamp_ms=1000,
+                             bitrate_bps=len(sparse50[0]) * 8 * 30 / t,
+                             psnr_db=psnr(rgb_np, sparse_rgb))
+        sink = db.CodecMetricsSink.open(sink_dir)
+        sink.record(m)
+        sink.flush()
+        reread = db.CodecMetricsSink.open(sink_dir)
+        f32 = lambda v: float(np.float32(v))  # noqa: E731
+        check(reread.query_encode_time(0, 2000) == [(1000, f32(m.encode_time_us))]
+              and reread.query_bitrate(0, 2000) == [(1000, f32(m.bitrate_bps))]
+              and reread.query_psnr(0, 2000) == [(1000, f32(m.psnr_db))],
+              "the metrics sink reads back otherwise")
+        print(f"metrics sink: encode {m.encode_time_us:.1f} us, "
+              f"{m.bitrate_bps:.1f} bit/s at 30 fps, PSNR {m.psnr_db:.4f} dB, "
+              f"read back [{card}]")
+
+        # ── the CLI as a module, without --device: the card or nothing
+        small = tmp / "small.rgb"
+        write_raw_rgb(small, rgb_np[:8, :256, :256])
+        argv = [str(small), *["-W", "256", "-H", "256", "-f", "8"], "--format",
+                "alc3", "-q", "90"]
+        t_module = 0.0
+        for where in ("module", "process"):
+            enc = ["encode", *argv, "-o", str(tmp / f"{where}.alc3")]
+            dec = ["decode", str(tmp / f"{where}.alc3"), "-o", str(tmp / f"{where}.rgb")]
+            if where == "module":
+                t0 = time.perf_counter()
+                for cmd in (enc, dec):
+                    r = subprocess.run(
+                        [sys.executable, "-m", "alice_codec_tpu_torch.cli", *cmd],
+                        cwd=ROOT, capture_output=True, text=True, timeout=300)
+                    check(r.returncode == 0, f"python -m alice_codec_tpu_torch.cli "
+                                             f"{cmd[0]}: exit {r.returncode}: {r.stderr}")
+                t_module = time.perf_counter() - t0
+            else:
+                check(cli.main(enc) == 0 and cli.main(dec) == 0, "cli on the small file")
+        for ext in (".alc3", ".rgb"):
+            check((tmp / f"module{ext}").read_bytes() == (tmp / f"process{ext}").read_bytes(),
+                  f"python -m alice_codec_tpu_torch.cli wrote another {ext} than cli.main")
+        print(f"python -m alice_codec_tpu_torch.cli encode + decode of 8x256x256 "
+              f"(no --device): {t_module:.1f} s in two processes, the bytes "
+              f"of cli.main [{card}]")
+
+        # ── the C ABI shim through ctypes, on the card (its default)
+        t0 = time.perf_counter()
+        lib = ffi.get_ffi_lib()
+        print(f"C ABI shim: {ffi._SO.name} built and loaded in "
+              f"{time.perf_counter() - t0:.1f} s, libpython link flags "
+              f"{ffi.libpython_flags() or 'none (symbols from the interpreter)'}")
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        flat = np.ascontiguousarray(rgb_np).reshape(-1)
+        enc_h = lib.alice_codec_encoder_create(90)
+        n = ctypes.c_uint32(0)
+        reset_launches()
+        t0 = time.perf_counter()
+        chunk = lib.alice_codec_encode(enc_h, flat.ctypes.data_as(u8p), flat.size,
+                                       w, h, t)
+        check(bool(chunk), "alice_codec_encode returned NULL on the card")
+        ptr = lib.alice_codec_chunk_to_bytes(chunk, ctypes.byref(n))
+        data = ctypes.string_at(ptr, n.value)
+        t_enc = time.perf_counter() - t0
+        lib.alice_codec_data_free(ptr, n.value)
+        enc = launch_counts()
+        print(f"ffi_alc_q90 encode launches: {enc}")
+        check(only_launches(enc, {"forward_quant": 1}),
+              f"ffi_alc_q90 encode: expected forward_quant 1, got {enc}")
+        check(data == alc90[0], "ffi_alc_q90: chunk bytes differ from phase 4's .alc")
+        check((lib.alice_codec_chunk_width(chunk), lib.alice_codec_chunk_height(chunk),
+               lib.alice_codec_chunk_frames(chunk)) == (w, h, t), "ffi chunk dims")
+        reset_launches()
+        t0 = time.perf_counter()
+        ptr = lib.alice_codec_decode(chunk, ctypes.byref(n))
+        check(bool(ptr) and n.value == flat.size, "alice_codec_decode failed")
+        out = np.ctypeslib.as_array(ptr, (n.value,))
+        t_dec = time.perf_counter() - t0
+        dec = launch_counts()
+        print(f"ffi_alc_q90 decode launches: {dec}")
+        check(only_launches(dec, {"inverse_3d": 1}),
+              f"ffi_alc_q90 decode: expected inverse_3d 1, got {dec}")
+        check(np.array_equal(out, alc90[1]), "ffi_alc_q90: RGB differs from phase 4's .alc")
+        db_ffi = lib.alice_codec_psnr(flat.ctypes.data_as(u8p), ptr, flat.size)
+        db_host = psnr(flat, out)
+        check(abs(db_ffi - db_host) < 1e-9,
+              f"alice_codec_psnr {db_ffi!r} != host psnr {db_host!r}")
+        lib.alice_codec_data_free(ptr, n.value)
+        lib.alice_codec_chunk_destroy(chunk)
+        lib.alice_codec_encoder_destroy(enc_h)
+        by_path["ffi_alc_q90"] = {k: enc[k] + dec[k] for k in enc}
+        print(f"ffi_alc_q90: {len(data)} chunk bytes and RGB equal to phase 4's "
+              f".alc, PSNR {db_ffi:.6f} dB (host {db_host:.6f}); encode {t_enc:.3f} s, "
+              f"decode {t_dec:.3f} s buffer to buffer (host clock) [{card}]")
+        del out, data
+
+        # ── an .alcs stream of two .alc chunks: read, truncated, resumed
+        path = tmp / "two.alcs"
+        with AlcStreamWriter(path) as wr:
+            for _ in range(2):
+                wr.append(EncodedChunk.from_bytes(alc90[0]))
+        got = [c.to_bytes() for c in AlcStreamReader(path)]
+        check(got == [alc90[0]] * 2, "the .alcs stream reads back otherwise")
+        path.write_bytes(path.read_bytes()[:-7])
+        reader = AlcStreamReader(path)
+        check(len(list(reader)) == 1 and reader.valid_end == 12 + len(alc90[0]),
+              "the truncated .alcs stream did not give back its first chunk")
+        with AlcStreamWriter(path, resume=True) as wr:
+            check(wr.chunks_written == 1, "the resumed .alcs writer counts otherwise")
+            wr.append(EncodedChunk.from_bytes(alc90[0]))
+        check(len(list(AlcStreamReader(path))) == 2, "the resumed .alcs stream")
+        print(f".alcs: two {len(alc90[0])}-byte .alc chunks written, read back, "
+              f"truncated by 7 bytes (one recovered) and resumed [{card}]")
+
+    # ── the ML bridge on the card against the CPU; the frame cache.
+    # Integer features below 2^14 (past TF32's and bf16's mantissas; every
+    # partial sum exact in float32): the card's logits are the CPU's
+    # exactly.  Float features: each side within the float32 summation
+    # bound (n·u/(1 − n·u) · Σ|w·x|, any order) of the float64 products.
+    rng = np.random.default_rng(12)
+    n_in = 512
+    wts = rng.integers(-1, 2, (16, n_in)).astype(np.int8)
+    card_clf, cpu_clf = (ml.SubBandClassifier(wts, n_in, 16, device=d)
+                         for d in ("cuda", "cpu"))
+    card_mv, cpu_mv = (ml.MotionPredictor(wts[:2], n_in, device=d)
+                       for d in ("cuda", "cpu"))
+    gamma = n_in * 2.0**-24 / (1 - n_in * 2.0**-24)
+    for feats in (rng.integers(-16000, 16000, n_in).astype(np.float32),
+                  rng.standard_normal(n_in).astype(np.float32) * 60):
+        a, b = np.zeros(16, np.float32), np.zeros(16, np.float32)
+        card_clf.classify_logits(feats, a)
+        cpu_clf.classify_logits(feats, b)
+        mv = np.array([card_mv.predict(feats), cpu_mv.predict(feats)])
+        x64 = feats.astype(np.float64)
+        ref, bound = wts @ x64, gamma * (np.abs(wts) @ np.abs(x64))
+        if (feats == np.round(feats)).all():
+            check(np.array_equal(a, b) and np.array_equal(a, ref)
+                  and (mv == ref[:2]).all(),
+                  f"ternary logits of integer features: card {a}, CPU {b}, "
+                  f"exact {ref}")
+            check(card_clf.classify(feats) == cpu_clf.classify(feats),
+                  "SubBandClassifier class on the card differs from the CPU's")
+        else:
+            check((np.abs(a - ref) <= bound).all() and (np.abs(b - ref) <= bound).all()
+                  and (np.abs(mv - ref[:2]) <= bound[:2]).all(),
+                  f"ternary logits beyond the float32 summation bound {bound}: "
+                  f"card {a}, CPU {b}, float64 {ref}")
+    fc = cache.FrameCache(t // 2)
+    frames = sparse50[1]
+    for i in range(t):
+        fc.put(0, i, 50, frames[i], w, h)
+    last = fc.get(0, t - 1, 50)
+    check(len(fc) == t // 2 and fc.get(0, 0, 50) is None and last is not None
+          and last.data.device == frames.device
+          and last.data.data_ptr() == frames[t - 1].data_ptr(),
+          "FrameCache did not hold the decoded CUDA frames in place")
+    print(f"ml bridge: SubBandClassifier 16x{n_in} and MotionPredictor on the "
+          f"card: integer features the CPU's logits exactly, float32 ones "
+          f"within the summation bound of float64 on both; FrameCache({t // 2}) "
+          f"holds {len(fc)} decoded CUDA frames in place, hit rate "
+          f"{fc.hit_rate():.2f} [{card}]")
     return by_path
 
 
@@ -1423,6 +1693,8 @@ def main() -> int:
               f"PSNR {psnr:.4f} dB{kc}{bs}; equal to the plain pipeline"
               + ("; RGB equal to the dense codec's" if chunk.sparse else ""))
         by_path[name] = launches
+        if name == "sparse_q50":  # phase 4d's CLI file is this container
+            sparse50 = (data, out)
         del out, chunk
         torch.cuda.empty_cache()
     del dense_rgb
@@ -1459,6 +1731,7 @@ def main() -> int:
     print(f"alc_q90: {len(a_data)} container bytes, compression {ratio:.4f}x, "
           f"PSNR {psnr:.4f} dB; equal to the plain pipeline; first run "
           f"encode {t_alc[0]:.3f} s, decode {t_alc[1]:.3f} s [{card}]")
+    alc90 = (a_data, a_out)  # phase 4d's CLI and shim files are this chunk
     del a_out, a_chunk
 
     # the ALC2 batch, device entropy (bench.py config4_alc_batched_decode)
@@ -1683,6 +1956,11 @@ def main() -> int:
 
     # ── 4c. bench.py config3 and config5 ────────────────────────
     by_path.update(bench_routes(rgb, config5_chunk.result(), card))
+    torch.cuda.empty_cache()
+
+    # ── 4d. the tools ───────────────────────────────────────────
+    by_path.update(tools_routes(rgb_np, sparse50, alc90, card))
+    del sparse50, alc90
     torch.cuda.empty_cache()
 
     # ── 5. timings ──────────────────────────────────────────────

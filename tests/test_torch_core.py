@@ -82,7 +82,13 @@ def test_import_leaves_jax_out():
             "alice_codec_tpu_torch.segment, alice_codec_tpu_torch.container, "
             "alice_codec_tpu_torch.profiling, alice_codec_tpu_torch.models, "
             "alice_codec_tpu_torch.models.presets, alice_codec_tpu_torch.ops.quant, "
-            "alice_codec_tpu_torch.ops.wavelet, chip_smoke; "
+            "alice_codec_tpu_torch.ops.wavelet, alice_codec_tpu_torch.cli, "
+            "alice_codec_tpu_torch.utils.io, alice_codec_tpu_torch.utils.stream, "
+            "alice_codec_tpu_torch.bridges, alice_codec_tpu_torch.bridges.ml, "
+            "alice_codec_tpu_torch.bridges.cache, alice_codec_tpu_torch.bridges.db, "
+            "alice_codec_tpu_torch.bridges.crypto, "
+            "alice_codec_tpu_torch.bridges._blake3, alice_codec_tpu_torch.ffi, "
+            "alice_codec_tpu_torch.ffi.helpers, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('alice_codec_tpu.') or m == 'alice_codec_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -879,3 +879,123 @@ def test_dense_cdf97_on_card_matches_plain(cuda):
         events = _json.loads((Path(tmp) / "trace.json").read_text())["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any("decode_words" in n for n in names), sorted(names)[:20]
+
+
+# ── the tools on the card ───────────────────────────────────────
+
+
+@pytest.mark.parametrize("flags, enc_want, dec_want", [
+    ([], {"forward_quant": 1}, {"inverse_3d": 1}),
+    (["--format", "alc3", "--sparse", "-q", "50", "--s-seg", "8"],
+     {"forward_quant": 1, "encode_words": 1, "compact": 1},
+     {"decode_words": 1, "expand": 1, "inverse_dequant": 1}),
+    (["--format", "alc3", "--s-seg", "8", "--chunk-size", "4"],
+     {"forward_quant": 2, "encode_words": 2},
+     {"decode_words": 2, "inverse_dequant": 2}),
+])
+def test_cli_on_card_matches_cpu(cuda, tmp_path, flags, enc_want, dec_want):
+    """The CLI without ``--device`` codes on the card, with each path's
+    launches, and writes the bytes and RGB of its ``--device cpu`` run."""
+    from alice_codec_tpu_torch import cli
+    from chip_smoke import golden_input
+
+    t, h, w = 8, 256, 256  # sparse golden case a's input: q=50 compacts a plane
+    (tmp_path / "in.rgb").write_bytes(golden_input("chunk", 0, (t, h, w)).tobytes())
+    files = {}
+    for name, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        reset_launches()
+        assert cli.main(["encode", str(tmp_path / "in.rgb"), "-o",
+                         str(tmp_path / f"{name}.alc"), "-W", str(w), "-H", str(h),
+                         "-f", str(t), *flags, *extra]) == 0
+        enc = launch_counts()
+        reset_launches()
+        assert cli.main(["decode", str(tmp_path / f"{name}.alc"), "-o",
+                         str(tmp_path / f"{name}.rgb"), *extra]) == 0
+        torch.cuda.synchronize()
+        dec = launch_counts()
+        if name == "card":
+            assert all(enc[k] == enc_want.get(k, 0) for k in enc), enc
+            assert all(dec[k] == dec_want.get(k, 0) for k in dec), dec
+        else:
+            assert not any(enc.values()) and not any(dec.values())
+        files[name] = [(tmp_path / f"{name}{s}").read_bytes() for s in (".alc", ".rgb")]
+    assert files["card"] == files["cpu"]
+
+
+def test_ffi_on_card_matches_cpu(cuda):
+    """The C ABI shim codes on the card unless asked for the CPU: the same
+    bytes and RGB, K1 on encode and K7's inverse on decode."""
+    import ctypes
+
+    from alice_codec_tpu_torch import ffi
+    from chip_smoke import golden_input
+
+    t, h, w = 4, 40, 72
+    rgb = golden_input("chunk", 1, (t, h, w)).reshape(-1)
+    ptr = rgb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    got = {}
+    for dev in (None, "cpu"):
+        lib = ffi.get_ffi_lib(device=dev)
+        enc = lib.alice_codec_encoder_create(90)
+        reset_launches()
+        chunk = lib.alice_codec_encode(enc, ptr, rgb.size, w, h, t)
+        assert chunk
+        n = ctypes.c_uint32(0)
+        data_ptr = lib.alice_codec_chunk_to_bytes(chunk, ctypes.byref(n))
+        data = ctypes.string_at(data_ptr, n.value)
+        lib.alice_codec_data_free(data_ptr, n.value)
+        out_ptr = lib.alice_codec_decode(chunk, ctypes.byref(n))
+        out = ctypes.string_at(out_ptr, n.value)
+        lib.alice_codec_data_free(out_ptr, n.value)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {"forward_quant": 1, "inverse_3d": 1} if dev is None else {}
+        assert all(counts[k] == want.get(k, 0) for k in counts), counts
+        lib.alice_codec_chunk_destroy(chunk)
+        lib.alice_codec_encoder_destroy(enc)
+        got[dev] = (data, out)
+    ffi.get_ffi_lib()
+    assert got[None] == got["cpu"] and len(got[None][1]) == rgb.size
+
+
+def test_ml_bridge_and_cache_on_card_match_cpu(cuda):
+    """The ML bridge on the card, with the matmul precision set to its
+    lowest: integer features below 2^14 (past TF32's mantissa; every
+    partial sum exact) give the CPU's logits exactly, float32 features stay
+    within the float32 summation bound of the float64 products on both
+    sides; the frame cache keeps a CUDA frame where it is."""
+    from alice_codec_tpu_torch.bridges import cache, ml
+
+    rng = np.random.default_rng(5)
+    n = 300
+    w = rng.integers(-1, 2, (16, n)).astype(np.int8)
+    gamma = n * 2.0**-24 / (1 - n * 2.0**-24)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        card, cpu = (ml.SubBandClassifier(w, n, 16, device=d) for d in (cuda, "cpu"))
+        mv_card, mv_cpu = (ml.MotionPredictor(w[:2], n, device=d) for d in (cuda, "cpu"))
+        for x in (rng.integers(-16000, 16000, n).astype(np.float32),
+                  rng.standard_normal(n).astype(np.float32) * 40):
+            a, b = np.zeros(16, np.float32), np.zeros(16, np.float32)
+            card.classify_logits(x, a)
+            cpu.classify_logits(x, b)
+            mv = np.array([mv_card.predict(x), mv_cpu.predict(x)])
+            ref = w @ x.astype(np.float64)
+            bound = gamma * (np.abs(w) @ np.abs(x.astype(np.float64)))
+            if (x == np.round(x)).all():
+                np.testing.assert_array_equal(a, ref)
+                np.testing.assert_array_equal(b, ref)
+                np.testing.assert_array_equal(mv, np.stack([ref[:2]] * 2))
+                assert card.classify(x) == cpu.classify(x)
+            else:
+                for got in (a, b):
+                    assert (np.abs(got - ref) <= bound).all()
+                assert (np.abs(mv - ref[:2]) <= bound[:2]).all()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    fc = cache.FrameCache(2)
+    frame = torch.arange(24, dtype=torch.uint8, device=cuda).reshape(2, 4, 3)
+    fc.put(0, 0, 90, frame, 4, 2)
+    got = fc.get(0, 0, 90).data
+    assert got.device == frame.device and got.data_ptr() == frame.data_ptr()

@@ -13,6 +13,7 @@ the new device entry points raise without a card; and the two
 
 Each JAX codec program compiles once (the quality is a traced argument)."""
 
+import dataclasses
 import re
 
 import jax
@@ -222,8 +223,14 @@ def test_stage_timer_report_has_jax_shape():
         assert timer.counts["encode"] == 2 and timer.average_us("none") == 0.0
         reports.append(re.sub(r"[0-9.]+", "#", timer.report()))
     assert reports[0] == reports[1]
-    with pytest.raises(NotImplementedError, match="bridges"):
-        profiling.StageTimer().as_metrics("encode", timestamp_ms=0)
+    # as_metrics: the same CodecMetrics fields as JAX's (the DB bridge's)
+    got, want = (mod.StageTimer(totals={"encode": 0.5}, counts={"encode": 2})
+                 .as_metrics("encode", timestamp_ms=7, bitrate_bps=1.5e6,
+                             psnr_db=38.25)
+                 for mod in (profiling, jprofiling))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert type(got).__module__ == "alice_codec_tpu_torch.bridges.db"
+    assert got.encode_time_us == 250_000.0
 
 
 # ── the bench.py routes in small, against JAX live ──────────────
