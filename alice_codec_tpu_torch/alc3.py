@@ -1046,7 +1046,8 @@ class Alc3Codec:
     @staticmethod
     def _inverse_chunks(chunks, planes, padded, exact: bool, active):
         """K4 (and the inverse colour) a chunk, from the batch's (3B, P)
-        decoded planes, into one (B, T, H, W, 3) tensor."""
+        decoded planes, into one (B, T, H, W, 3) tensor (on the fused
+        colour route K4 writes each chunk's frames there itself)."""
         c0 = chunks[0]
         dev = planes.device
         w, h, t = c0.width, c0.height, c0.frames
@@ -1055,10 +1056,11 @@ class Alc3Codec:
         for i, c in enumerate(chunks):
             steps = torch.full((3,), c.quant_step, dtype=torch.int32,
                                device=dev)
-            out[i] = decode_device(
+            decode_device(
                 planes[3 * i : 3 * i + 3], steps,
                 wavelet_type=c0.wavelet_type, dims=(w, h, t), padded=padded,
-                exact=exact, levels=c0.levels, active=active, interleaved=True)
+                exact=exact, levels=c0.levels, active=active, interleaved=True,
+                out=out[i])
         return out
 
     # ── container serialization (host interchange) ──────────────

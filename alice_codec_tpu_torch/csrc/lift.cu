@@ -49,6 +49,32 @@
 //     accesses; 2-3 % faster than one column a thread on the H100); other
 //     T take the shared-memory temporal_lift.
 //
+// YCoCg-R in the fused kernels (K1 from RGB, K4 to RGB), on frames of the
+// fast form that nothing pads (the codec's 64 x 1080 x 1920 chunk, and 4K):
+// the colour costs no pass of its own.  The tile pass takes the colour as
+// a compile-time mode beside its storage type (Colour: kPlanes, the int16
+// / int32 frames of every other caller, compiles to the code it was).
+//   * K1 (kRgbLoad): the block of channel c of a tile loads the interleaved
+//     uint8 RGB of its window itself, 24 bytes a lane a row as one 16-byte
+//     and one 8-byte access in the order the row's alignment allows, and
+//     turns them into channel c in int32 registers (from uint8 input no
+//     YCoCg-R value leaves int16's range).  The grid puts the channel
+//     blocks of one (frame, tile) side by side, so the second and third
+//     read the 48 KB RGB window from L2 and HBM sees the frames about once:
+//     398 MB of uint8 read where the int16 planes were 796 MB.  The slot-0
+//     block also ORs which colour planes are nonzero into a 3-byte flag
+//     word (one atomic a warp, skipped once set), so the codec reads no
+//     volume again for its colour flags.
+//   * K4 (kRgbStore): RGB needs all three channels of a pixel, so one block
+//     per (frame, tile) lifts its channels one after another, stages each
+//     stored tile as int16 in dynamic shared memory (3 x 60 x 240 x 2 B =
+//     86 KB at halo 2; 2 blocks an SM), then writes interleaved RGB rows,
+//     24 bytes a thread as 16 + 8 bytes.  Every inverse intermediate wraps
+//     to int16 as ops/color.py computes it, then clamps to [0, 255]; an
+//     inactive channel is zeros.  On the H100 at 64 x 1080 x 1920 this
+//     took 1.04 ms against 1.37 for the other design (the tiles into an
+//     int16 volume, then a colour kernel over it), so only it is kept.
+//
 // Storage points follow the TPU kernels exactly: int32 inside a pass,
 // int16 where the Pallas kernels store.  An out-of-range inverse
 // intermediate therefore WRAPS at the temporal -> spatial boundary, and,
@@ -338,46 +364,43 @@ __device__ __forceinline__ void store_int16(Tile& v) {
     for (int j = 0; j < kSeg; ++j) v[i][j] = (int16_t)v[i][j];
 }
 
-// grid (ceil(w / kTileW), ceil(h / (kWinH - 2 halo)), planes): the W and H
-// lifts of one tile (forward: W then H; inverse: H then W), S (int16_t:
-// K1 / K4; int32_t: K7) in and out, int16 between the axes when split.
-// FAST: h >= kWinH, w >= kWinW, w % 8 == 0 and 16-byte aligned volumes;
-// the window is clamped into the frame and needs no bounds tests.
-template <class S, class F, bool FWD, bool FAST>
-__global__ void __launch_bounds__(kTileThreads, 2)
-    spatial_tiles(const S* __restrict__ in, S* __restrict__ out,
-                  int h, int w, int halo, int split) {
-  static_assert(std::is_same_v<S, int16_t> || std::is_same_v<S, int32_t>);
-  __shared__ int xch[2][kWarps][kSeg][32];
-  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-  const TileWindow tw = tile_window(blockIdx.x, blockIdx.y, h, w, halo, FAST);
-  const int gr0 = tw.wr0 + g * kRows, gc = tw.wc0 + lane * kSeg;
-  const size_t plane = (size_t)blockIdx.z * h * w;
-  Tile v;
-  constexpr bool kI16 = std::is_same_v<S, int16_t>;
-  if constexpr (FAST && kI16) {
-    const S* src = in + plane + (size_t)gr0 * w + gc;
+// Eight int16 values (the low halves of r[0..8)) as one 16-byte word.
+__device__ __forceinline__ int4 pack_int16(const int (&r)[kSeg]) {
+  return make_int4((int)__byte_perm(r[0], r[1], 0x5410), (int)__byte_perm(r[2], r[3], 0x5410),
+                   (int)__byte_perm(r[4], r[5], 0x5410), (int)__byte_perm(r[6], r[7], 0x5410));
+}
+
+__device__ __forceinline__ void unpack_int16(int4 q, int (&r)[kSeg]) {
+  const int word[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    r[2 * k] = (int16_t)(word[k] & 0xffff);
+    r[2 * k + 1] = word[k] >> 16;
+  }
+}
+
+// The thread's kRows x kSeg values of the frame at src (its first element)
+// from frame row gr0 and column gc: 16-byte loads where FAST, else element
+// loads with zeros outside the frame.
+template <class S, bool FAST>
+__device__ __forceinline__ void load_tile(Tile& v, const S* __restrict__ src, int gr0,
+                                          int gc, int h, int w) {
+  if constexpr (FAST && std::is_same_v<S, int16_t>) {
+    const S* p = src + (size_t)gr0 * w + gc;
     int4 q[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
-      q[i] = __ldg(reinterpret_cast<const int4*>(src + (size_t)i * w));
+      q[i] = __ldg(reinterpret_cast<const int4*>(p + (size_t)i * w));
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int word[4] = {q[i].x, q[i].y, q[i].z, q[i].w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        v[i][2 * k] = (int16_t)(word[k] & 0xffff);
-        v[i][2 * k + 1] = word[k] >> 16;
-      }
-    }
+    for (int i = 0; i < kRows; ++i) unpack_int16(q[i], v[i]);
   } else if constexpr (FAST) {
-    const int4* src = reinterpret_cast<const int4*>(in + plane + (size_t)gr0 * w + gc);
+    const int4* p = reinterpret_cast<const int4*>(src + (size_t)gr0 * w + gc);
     const size_t row = w / 4;  // int4 a frame row
     int4 q[2 * kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      q[2 * i] = __ldg(src + i * row);
-      q[2 * i + 1] = __ldg(src + i * row + 1);
+      q[2 * i] = __ldg(p + i * row);
+      q[2 * i + 1] = __ldg(p + i * row + 1);
     }
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
@@ -393,11 +416,18 @@ __global__ void __launch_bounds__(kTileThreads, 2)
 #pragma unroll
       for (int j = 0; j < kSeg; ++j) {
         const int c = gc + j;
-        v[i][j] = (r >= 0 && r < h && c >= 0 && c < w)
-                      ? (int)in[plane + (size_t)r * w + c] : 0;
+        v[i][j] = (r >= 0 && r < h && c >= 0 && c < w) ? (int)src[(size_t)r * w + c] : 0;
       }
     }
   }
+}
+
+// The lifts of one tile: forward W then H, inverse H then W, with an int16
+// store between the axes when split.
+template <class F, bool FWD, bool FAST>
+__device__ __forceinline__ void lift_tile(Tile& v, int gr0, int gc, int h, int w, int g,
+                                          int lane, int split,
+                                          int (*xch)[kWarps][kSeg][32]) {
   if (FWD) {
     lift_w<F, FAST>(v, gc, w);
     if (split) store_int16(v);
@@ -407,38 +437,230 @@ __global__ void __launch_bounds__(kTileThreads, 2)
     if (split) store_int16(v);
     lift_w<F, FAST>(v, gc, w);
   }
-  const int r0 = tw.r0, r1 = tw.r1, c0 = tw.c0, c1 = tw.c1;
+}
+
+// The stored part of the tile (rows [r0, r1), columns [c0, c1)) from the
+// thread's values into the frame at dst (its first element).
+template <class S, bool FAST>
+__device__ __forceinline__ void store_tile(const Tile& v, S* __restrict__ dst,
+                                           const TileWindow& tw, int gr0, int gc, int w) {
   if constexpr (FAST) {
-    if (gc < c0 || gc >= c1) return;  // a lane's 8 columns are all in or out
+    if (gc < tw.c0 || gc >= tw.c1) return;  // a lane's 8 columns are all in or out
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = gr0 + i;
-      if (r < r0 || r >= r1) continue;
-      if constexpr (kI16) {
-        int4 q;
-        q.x = (int)__byte_perm(v[i][0], v[i][1], 0x5410);
-        q.y = (int)__byte_perm(v[i][2], v[i][3], 0x5410);
-        q.z = (int)__byte_perm(v[i][4], v[i][5], 0x5410);
-        q.w = (int)__byte_perm(v[i][6], v[i][7], 0x5410);
-        *reinterpret_cast<int4*>(out + plane + (size_t)r * w + gc) = q;
+      if (r < tw.r0 || r >= tw.r1) continue;
+      if constexpr (std::is_same_v<S, int16_t>) {
+        *reinterpret_cast<int4*>(dst + (size_t)r * w + gc) = pack_int16(v[i]);
       } else {
-        int4* dst = reinterpret_cast<int4*>(out + plane + (size_t)r * w + gc);
-        dst[0] = make_int4(v[i][0], v[i][1], v[i][2], v[i][3]);
-        dst[1] = make_int4(v[i][4], v[i][5], v[i][6], v[i][7]);
+        int4* p = reinterpret_cast<int4*>(dst + (size_t)r * w + gc);
+        p[0] = make_int4(v[i][0], v[i][1], v[i][2], v[i][3]);
+        p[1] = make_int4(v[i][4], v[i][5], v[i][6], v[i][7]);
       }
     }
   } else {
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = gr0 + i;
-      if (r < r0 || r >= r1) continue;
+      if (r < tw.r0 || r >= tw.r1) continue;
 #pragma unroll
       for (int j = 0; j < kSeg; ++j) {
         const int c = gc + j;
-        if (c >= c0 && c < c1) out[plane + (size_t)r * w + c] = (S)v[i][j];
+        if (c >= tw.c0 && c < tw.c1) dst[(size_t)r * w + c] = (S)v[i][j];
       }
     }
   }
+}
+
+// ---- YCoCg-R in the fused kernels' tile pass --------------------------------
+
+// What the tile pass reads and writes.  kPlanes: frames of S (every caller
+// of K7, and K1 / K4 on frames that are padded or not of the fast form).
+// kRgbLoad (K1): the interleaved uint8 (T, H, W, 3) frames, turned into one
+// YCoCg-R channel as they load.  kRgbStore (K4): a block lifts the three
+// channels of its tile and writes them back as interleaved uint8 RGB.
+enum Colour { kPlanes = 0, kRgbLoad = 1, kRgbStore = 2 };
+
+// The colour modes' arguments (unused by kPlanes).
+struct Rgb {
+  const uint8_t* src;  // kRgbLoad: the (T, H, W, 3) frames
+  uint8_t* dst;        // kRgbStore: the (T, H, W, 3) frames
+  int frames;          // T
+  int n;               // kRgbLoad: channels lifted, one grid slot each
+  int chans;           // kRgbLoad: channel of slot k in bits 2k, 2k+1;
+                       // kRgbStore: bit c set where channel c is active
+  unsigned* flags;     // kRgbLoad: byte c set to 1 where channel c holds a
+                       // nonzero value (null: not wanted)
+};
+
+// The 24 bytes at p (8-byte aligned) as six words: one 16-byte and one
+// 8-byte access, in the order p's alignment allows (no lane diverges).
+__device__ __forceinline__ void load24(const uint8_t* p, unsigned (&b)[6]) {
+  const bool a = ((uintptr_t)p & 15) == 0;
+  const int4 q = __ldg(reinterpret_cast<const int4*>(p + (a ? 0 : 8)));
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p + (a ? 16 : 0)));
+  b[0] = a ? (unsigned)q.x : u.x;
+  b[1] = a ? (unsigned)q.y : u.y;
+  b[2] = a ? (unsigned)q.z : (unsigned)q.x;
+  b[3] = a ? (unsigned)q.w : (unsigned)q.y;
+  b[4] = a ? u.x : (unsigned)q.z;
+  b[5] = a ? u.y : (unsigned)q.w;
+}
+
+__device__ __forceinline__ void store24(uint8_t* p, const unsigned (&b)[6]) {
+  const bool a = ((uintptr_t)p & 15) == 0;
+  const int4 q = a ? make_int4(b[0], b[1], b[2], b[3]) : make_int4(b[2], b[3], b[4], b[5]);
+  const uint2 u = a ? make_uint2(b[4], b[5]) : make_uint2(b[0], b[1]);
+  *reinterpret_cast<int4*>(p + (a ? 0 : 8)) = q;
+  *reinterpret_cast<uint2*>(p + (a ? 16 : 0)) = u;
+}
+
+__device__ __forceinline__ int byte_of(const unsigned (&b)[6], int k) {
+  return (b[k >> 2] >> (8 * (k & 3))) & 0xff;
+}
+
+__device__ __forceinline__ int wrap16(int x) { return (int16_t)x; }
+
+// Inverse YCoCg-R of one pixel's int16 (y, co, cg), every intermediate
+// wrapped to int16 as ops/color.py's int16 tensors wrap it, then clamped
+// to [0, 255]: the pixel's three bytes, R lowest.
+__device__ __forceinline__ unsigned rgb_bytes(int y, int co, int cg) {
+  const int t = wrap16(y - (cg >> 1));
+  const int g = wrap16(cg + t);
+  const int b = wrap16(t - (co >> 1));
+  const int r = wrap16(co + b);
+  return (unsigned)min(max(r, 0), 255) | (unsigned)min(max(g, 0), 255) << 8 |
+         (unsigned)min(max(b, 0), 255) << 16;
+}
+
+// K1's load: the thread's 8 rows of 8 pixels from the frame's RGB, and
+// their YCoCg-R channel ch (int32 arithmetic: from uint8 input nothing
+// leaves int16's range, so these are the int16 values).  Where flags are
+// wanted, returns in bits 0, 8, 16 whether the thread saw a nonzero Y, Co,
+// Cg.
+__device__ __forceinline__ unsigned load_rgb(Tile& v, const uint8_t* __restrict__ frame,
+                                             int gr0, int gc, int w, int ch) {
+  const uint8_t* p = frame + 3 * ((size_t)gr0 * w + gc);
+  unsigned raw[kRows][6];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) load24(p + (size_t)i * 3 * w, raw[i]);
+  int ay = 0, aco = 0, acg = 0;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) {
+      const int r = byte_of(raw[i], 3 * j), g = byte_of(raw[i], 3 * j + 1),
+                b = byte_of(raw[i], 3 * j + 2);
+      const int co = r - b;
+      const int t = b + (co >> 1);
+      const int cg = g - t;
+      const int y = t + (cg >> 1);
+      v[i][j] = ch == 0 ? y : ch == 1 ? co : cg;
+      ay |= y;
+      aco |= co;
+      acg |= cg;
+    }
+  return (ay != 0) | (aco != 0) << 8 | (acg != 0) << 16;
+}
+
+// K4's store: the stored tiles of the three channels, staged in shared
+// memory as int16 (stage: 3 x rows x kTileW, zeros read for an inactive
+// channel), as interleaved RGB rows of 8-pixel groups (24 bytes each).
+__device__ __forceinline__ void store_rgb(const int16_t* stage, int srows, int mask,
+                                          const TileWindow& tw, uint8_t* __restrict__ frame,
+                                          int w) {
+  const int rows = tw.r1 - tw.r0, groups = (tw.c1 - tw.c0) / kSeg;
+  for (int k = threadIdx.x; k < rows * groups; k += kTileThreads) {
+    const int i = k / groups, j = k - i * groups;
+    int c3[3][kSeg];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int4 q = (mask >> c & 1)
+          ? *reinterpret_cast<const int4*>(stage + ((size_t)c * srows + i) * kTileW + j * kSeg)
+          : make_int4(0, 0, 0, 0);
+      unpack_int16(q, c3[c]);
+    }
+    unsigned b[6] = {0, 0, 0, 0, 0, 0};
+#pragma unroll
+    for (int x = 0; x < kSeg; ++x) {
+      const unsigned px = rgb_bytes(c3[0][x], c3[1][x], c3[2][x]);
+#pragma unroll
+      for (int k3 = 0; k3 < 3; ++k3) {
+        const int at = 3 * x + k3;
+        b[at >> 2] |= ((px >> (8 * k3)) & 0xffu) << (8 * (at & 3));
+      }
+    }
+    store24(frame + 3 * ((size_t)(tw.r0 + i) * w + tw.c0 + j * kSeg), b);
+  }
+}
+
+// grid (ceil(w / kTileW) [x n channels, kRgbLoad], ceil(h / (kWinH - 2
+// halo)), planes [frames, colour modes]): the W and H lifts of one tile
+// (forward: W then H; inverse: H then W), S (int16_t: K1 / K4; int32_t:
+// K7) in and out, int16 between the axes when split.  FAST: h >= kWinH,
+// w >= kWinW, w % 8 == 0 and 16-byte aligned volumes; the window is
+// clamped into the frame and needs no bounds tests.
+//   kRgbLoad: block x = n tile + slot, so the n channel blocks of a tile
+// are neighbours: the second and third read the tile's RGB window (64 x
+// 256 x 3 bytes) from L2.  The block lifts channel (chans >> 2 slot) & 3
+// into plane (slot, frame) of out; the blocks of slot 0 also OR the
+// frame's colour flags into *flags (one atomic a warp, skipped once set).
+//   kRgbStore: one block per (frame, tile) lifts the active channels'
+// planes (slot, frame) of in one after another into a dynamic shared
+// stage, then writes the tile's RGB.
+template <class S, class F, bool FWD, bool FAST, int COLOR>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    spatial_tiles(const S* __restrict__ in, S* __restrict__ out,
+                  int h, int w, int halo, int split, Rgb rgb) {
+  static_assert(std::is_same_v<S, int16_t> || std::is_same_v<S, int32_t>);
+  static_assert(COLOR == kPlanes || (FAST && std::is_same_v<S, int16_t>));
+  static_assert(COLOR != kRgbLoad || FWD);
+  static_assert(COLOR != kRgbStore || !FWD);
+  __shared__ int xch[2][kWarps][kSeg][32];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int n = COLOR == kRgbLoad ? rgb.n : 1;
+  const int slot = blockIdx.x % n;
+  const TileWindow tw = tile_window(blockIdx.x / n, blockIdx.y, h, w, halo, FAST);
+  const int gr0 = tw.wr0 + g * kRows, gc = tw.wc0 + lane * kSeg;
+  const size_t hw = (size_t)h * w;
+  Tile v;
+  if constexpr (COLOR == kRgbStore) {
+    extern __shared__ int4 stage4[];
+    int16_t* stage = reinterpret_cast<int16_t*>(stage4);
+    const int srows = kWinH - 2 * halo;
+    int k = 0;
+#pragma unroll 1
+    for (int c = 0; c < 3; ++c) {
+      if (!(rgb.chans >> c & 1)) continue;  // the same in every thread
+      load_tile<S, FAST>(v, in + ((size_t)k++ * rgb.frames + blockIdx.z) * hw, gr0, gc, h, w);
+      lift_tile<F, FWD, FAST>(v, gr0, gc, h, w, g, lane, split, xch);
+      if (gc < tw.c0 || gc >= tw.c1) continue;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int r = gr0 + i;
+        if (r >= tw.r0 && r < tw.r1)
+          *reinterpret_cast<int4*>(stage + ((size_t)c * srows + r - tw.r0) * kTileW +
+                                   gc - tw.c0) = pack_int16(v[i]);
+      }
+    }
+    __syncthreads();
+    store_rgb(stage, srows, rgb.chans, tw, rgb.dst + 3 * blockIdx.z * hw, w);
+    return;
+  }
+  size_t plane = (size_t)blockIdx.z * hw;
+  if constexpr (COLOR == kRgbLoad) {
+    plane = ((size_t)slot * rgb.frames + blockIdx.z) * hw;
+    const unsigned seen = load_rgb(v, rgb.src + 3 * blockIdx.z * hw, gr0, gc, w,
+                                   (rgb.chans >> (2 * slot)) & 3);
+    if (slot == 0 && rgb.flags != nullptr) {
+      const unsigned any = __reduce_or_sync(0xffffffffu, seen);
+      if (lane == 0 && (any & ~*(volatile unsigned*)rgb.flags)) atomicOr(rgb.flags, any);
+    }
+  } else {
+    load_tile<S, FAST>(v, in + plane, gr0, gc, h, w);
+  }
+  lift_tile<F, FWD, FAST>(v, gr0, gc, h, w, g, lane, split, xch);
+  store_tile<S, FAST>(v, out + plane, tw, gr0, gc, w);
 }
 
 // ---- temporal pass at T = 64: columns in registers ---------------------------
@@ -731,9 +953,11 @@ cudaError_t spatial_launch(const S* in, S* out, int planes, int h, int w,
                            int halo, int split, cudaStream_t s) {
   const dim3 grid = tile_grid(h, w, halo, planes);
   if (fast_frame(h, w) && aligned(in, 16) && aligned(out, 16))
-    spatial_tiles<S, F, FWD, true><<<grid, kTileThreads, 0, s>>>(in, out, h, w, halo, split);
+    spatial_tiles<S, F, FWD, true, kPlanes><<<grid, kTileThreads, 0, s>>>(
+        in, out, h, w, halo, split, Rgb{});
   else
-    spatial_tiles<S, F, FWD, false><<<grid, kTileThreads, 0, s>>>(in, out, h, w, halo, split);
+    spatial_tiles<S, F, FWD, false, kPlanes><<<grid, kTileThreads, 0, s>>>(
+        in, out, h, w, halo, split, Rgb{});
   return cudaGetLastError();
 }
 
@@ -747,6 +971,56 @@ bool is_filter(const Steps& st) {
   return true;
 }
 
+// run(F{}) for the forward filter F whose steps st are; cudaErrorInvalidValue
+// for steps of no filter.
+template <class Run>
+cudaError_t with_forward(const Steps& st, Run&& run) {
+  if (is_filter<0, kForward>(st)) return run(Filter<0, kForward>{});
+  if (is_filter<1, kForward>(st)) return run(Filter<1, kForward>{});
+  if (is_filter<2, kForward>(st)) return run(Filter<2, kForward>{});
+  return cudaErrorInvalidValue;
+}
+
+// run(F{}) for the inverse filter F (compat or exact) whose steps st are.
+template <class Run>
+cudaError_t with_inverse(const Steps& st, Run&& run) {
+  if (is_filter<0, kInverseCompat>(st)) return run(Filter<0, kInverseCompat>{});
+  if (is_filter<1, kInverseCompat>(st)) return run(Filter<1, kInverseCompat>{});
+  if (is_filter<2, kInverseCompat>(st)) return run(Filter<2, kInverseCompat>{});
+  if (is_filter<0, kInverseExact>(st)) return run(Filter<0, kInverseExact>{});
+  if (is_filter<1, kInverseExact>(st)) return run(Filter<1, kInverseExact>{});
+  if (is_filter<2, kInverseExact>(st)) return run(Filter<2, kInverseExact>{});
+  return cudaErrorInvalidValue;
+}
+
+// K1's temporal pass with filter F: the c planes of tmp16 -> symbols.
+template <class F>
+cudaError_t temporal_quant_run(const int16_t* tmp16, uint8_t* out, const QuantParams* qp,
+                               int c, int t, size_t hw, int halo, const Steps& st,
+                               cudaStream_t s) {
+  if (t == kT64 && aligned(out, 2)) {
+    temporal_quant_t64<F><<<dim3(cdiv(hw / 2, kPairThreads), c), kPairThreads, 0, s>>>(
+        tmp16, out, qp, (int)hw);
+    return cudaGetLastError();
+  }
+  return temporal_launch(temporal_quant<false>, temporal_quant<true>, c, t, hw, halo, st,
+                         s, tmp16, out, qp);
+}
+
+// K4's temporal pass with filter F: c planes of symbols -> tmp16.
+template <class F>
+cudaError_t temporal_dequant_run(const uint8_t* sym, int16_t* tmp16, const int32_t* step,
+                                 int c, int t, size_t hw, int halo, const Steps& st,
+                                 cudaStream_t s) {
+  if (t == kT64 && aligned(sym, 2)) {
+    temporal_dequant_t64<F><<<dim3(cdiv(hw / 2, kPairThreads), c), kPairThreads, 0, s>>>(
+        sym, tmp16, step, (int)hw);
+    return cudaGetLastError();
+  }
+  return temporal_launch(temporal_dequant<false>, temporal_dequant<true>, c, t, hw, halo,
+                         st, s, sym, tmp16, step);
+}
+
 // The two passes of K1 with filter F.
 template <class F>
 cudaError_t forward_quant_run(const int16_t* vol, int16_t* tmp16, uint8_t* out,
@@ -756,16 +1030,23 @@ cudaError_t forward_quant_run(const int16_t* vol, int16_t* tmp16, uint8_t* out,
   cudaError_t e;
   if ((e = spatial_launch<int16_t, F, true>(vol, tmp16, c * t, h, w, halo, split, s)))
     return e;
-  const size_t hw = (size_t)h * w;
-  if (t == kT64 && aligned(out, 2)) {
-    temporal_quant_t64<F><<<dim3(cdiv(hw / 2, kPairThreads), c), kPairThreads, 0, s>>>(
-        tmp16, out, qp, (int)hw);
-  } else {
-    return temporal_launch(temporal_quant<false>, temporal_quant<true>, c, t,
-                           hw, halo, st, s,
-                           (const int16_t*)tmp16, out, qp);
-  }
-  return cudaGetLastError();
+  return temporal_quant_run<F>(tmp16, out, qp, c, t, (size_t)h * w, halo, st, s);
+}
+
+// The two passes of K1 with filter F from RGB frames: the colour and the
+// tiles of the n channels chans names (2 bits a slot) into tmp16, then T.
+template <class F>
+cudaError_t forward_quant_rgb_run(const uint8_t* rgb, int16_t* tmp16, uint8_t* out,
+                                  const QuantParams* qp, unsigned* flags, int n, int chans,
+                                  int t, int h, int w, int halo, int split, const Steps& st,
+                                  cudaStream_t s) {
+  dim3 grid = tile_grid(h, w, halo, t);
+  grid.x *= n;
+  spatial_tiles<int16_t, F, true, true, kRgbLoad><<<grid, kTileThreads, 0, s>>>(
+      nullptr, tmp16, h, w, halo, split, Rgb{rgb, nullptr, t, n, chans, flags});
+  cudaError_t e;
+  if ((e = cudaGetLastError())) return e;
+  return temporal_quant_run<F>(tmp16, out, qp, n, t, (size_t)h * w, halo, st, s);
 }
 
 // The two passes of K4 with filter F.
@@ -774,17 +1055,42 @@ cudaError_t inverse_dequant_run(const uint8_t* sym, int16_t* tmp16, int16_t* out
                                 const int32_t* step, int c, int t, int h, int w,
                                 int halo, int split, const Steps& st,
                                 cudaStream_t s) {
-  const size_t hw = (size_t)h * w;
-  cudaError_t e = cudaSuccess;
-  if (t == kT64 && aligned(sym, 2)) {
-    temporal_dequant_t64<F><<<dim3(cdiv(hw / 2, kPairThreads), c), kPairThreads, 0, s>>>(
-        sym, tmp16, step, (int)hw);
-  } else {
-    e = temporal_launch(temporal_dequant<false>, temporal_dequant<true>, c, t,
-                        hw, halo, st, s, sym, tmp16, step);
-  }
-  if (e || (e = cudaGetLastError())) return e;
+  cudaError_t e;
+  if ((e = temporal_dequant_run<F>(sym, tmp16, step, c, t, (size_t)h * w, halo, st, s)))
+    return e;
   return spatial_launch<int16_t, F, false>(tmp16, out, c * t, h, w, halo, split, s);
+}
+
+// The two passes of K4 with filter F into RGB frames: T of the active
+// channels (mask) into tmp16, one launch a run of neighbouring channels,
+// then the tiles of all three channels of a (frame, tile) in one block,
+// written as RGB.
+template <class F>
+cudaError_t inverse_dequant_rgb_run(const uint8_t* sym, int16_t* tmp16, uint8_t* rgb,
+                                    const int32_t* step, int mask, int t, int h, int w,
+                                    int halo, int split, const Steps& st, cudaStream_t s) {
+  const size_t hw = (size_t)h * w, vol = (size_t)t * hw;
+  cudaError_t e;
+  int n = 0;
+  for (int c = 0; c < 3;) {
+    if (!(mask >> c & 1)) {
+      ++c;
+      continue;
+    }
+    int end = c;
+    while (end < 3 && (mask >> end & 1)) ++end;
+    if ((e = temporal_dequant_run<F>(sym + c * vol, tmp16 + n * vol, step + c, end - c, t,
+                                     hw, halo, st, s)))
+      return e;
+    n += end - c;
+    c = end;
+  }
+  const auto kernel = spatial_tiles<int16_t, F, false, true, kRgbStore>;
+  const size_t smem = (size_t)3 * (kWinH - 2 * halo) * kTileW * sizeof(int16_t);
+  if ((e = allow_smem(kernel, smem))) return e;
+  kernel<<<tile_grid(h, w, halo, t), kTileThreads, smem, s>>>(
+      tmp16, nullptr, h, w, halo, split, Rgb{nullptr, rgb, t, 0, mask, nullptr});
+  return cudaGetLastError();
 }
 
 // K7's temporal pass with filter F, in -> out (in may equal out where T is
@@ -846,18 +1152,35 @@ extern "C" int alc_forward_quant(const void* vol, void* tmp16, void* out,
                                  void* stream) {
   const Steps st = make_steps(n, coeff, predict, 0);
   if (bad_halo(halo, n)) return cudaErrorInvalidValue;
-  const auto* v = (const int16_t*)vol;
-  auto* t16 = (int16_t*)tmp16;
-  auto* o = (uint8_t*)out;
-  const auto* qp = (const QuantParams*)qparams;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_filter<0, kForward>(st))
-    return forward_quant_run<Filter<0, kForward>>(v, t16, o, qp, c, t, h, w, halo, split, st, s);
-  if (is_filter<1, kForward>(st))
-    return forward_quant_run<Filter<1, kForward>>(v, t16, o, qp, c, t, h, w, halo, split, st, s);
-  if (is_filter<2, kForward>(st))
-    return forward_quant_run<Filter<2, kForward>>(v, t16, o, qp, c, t, h, w, halo, split, st, s);
-  return cudaErrorInvalidValue;
+  return with_forward(st, [&](auto f) {
+    return forward_quant_run<decltype(f)>(
+        (const int16_t*)vol, (int16_t*)tmp16, (uint8_t*)out, (const QuantParams*)qparams,
+        c, t, h, w, halo, split, st, (cudaStream_t)stream);
+  });
+}
+
+// Forward (K1) from RGB: u8 (t, h, w, 3) frames -> u8 symbols (n, t, h, w)
+// of the n YCoCg-R channels `chans` names (channel of output plane k in
+// bits 2k, 2k+1; 1 <= n <= 3), through tmp16 (n, t, h, w).  flags: null,
+// or a zeroed 4-byte device word whose byte c becomes 1 where channel c
+// (of all three, whatever chans) holds a nonzero value.  Frames of the
+// fast form only (h >= 64, w >= 256, w % 8 == 0, t even, 16-byte aligned
+// rgb and tmp16), else cudaErrorInvalidValue; the rest as for
+// alc_forward_quant.
+extern "C" int alc_forward_quant_rgb(const void* rgb, void* tmp16, void* out,
+                                     const void* qparams, void* flags, int n, int chans,
+                                     int t, int h, int w, int nsteps, const int* coeff,
+                                     const int* predict, int halo, int split,
+                                     void* stream) {
+  const Steps st = make_steps(nsteps, coeff, predict, 0);
+  if (bad_halo(halo, nsteps) || n < 1 || n > 3 || t % 2 || !fast_frame(h, w) ||
+      !aligned(rgb, 16) || !aligned(tmp16, 16))
+    return cudaErrorInvalidValue;
+  return with_forward(st, [&](auto f) {
+    return forward_quant_rgb_run<decltype(f)>(
+        (const uint8_t*)rgb, (int16_t*)tmp16, (uint8_t*)out, (const QuantParams*)qparams,
+        (unsigned*)flags, n, chans, t, h, w, halo, split, st, (cudaStream_t)stream);
+  });
 }
 
 // Inverse (K4): u8 symbols (c, t, h, w) -> i16 volume, through tmp16 (the
@@ -872,23 +1195,34 @@ extern "C" int alc_inverse_dequant(const void* sym, void* tmp16, void* out,
                                    int sub, int halo, int split, void* stream) {
   const Steps st = make_steps(n, coeff, predict, sub);
   if (bad_halo(halo, n)) return cudaErrorInvalidValue;
-  const auto* in = (const uint8_t*)sym;
-  auto* t16 = (int16_t*)tmp16;
-  auto* o = (int16_t*)out;
-  const auto* q = (const int32_t*)step;
-  cudaStream_t s = (cudaStream_t)stream;
-#define ALC_INVERSE(B, M)                                                      \
-  if (is_filter<B, M>(st))                                                     \
-    return inverse_dequant_run<Filter<B, M>>(in, t16, o, q, c, t, h, w, halo, \
-                                             split, st, s);
-  ALC_INVERSE(0, kInverseCompat)
-  ALC_INVERSE(1, kInverseCompat)
-  ALC_INVERSE(2, kInverseCompat)
-  ALC_INVERSE(0, kInverseExact)
-  ALC_INVERSE(1, kInverseExact)
-  ALC_INVERSE(2, kInverseExact)
-#undef ALC_INVERSE
-  return cudaErrorInvalidValue;
+  return with_inverse(st, [&](auto f) {
+    return inverse_dequant_run<decltype(f)>(
+        (const uint8_t*)sym, (int16_t*)tmp16, (int16_t*)out, (const int32_t*)step, c, t, h,
+        w, halo, split, st, (cudaStream_t)stream);
+  });
+}
+
+// Inverse (K4) to RGB: u8 symbols (3, t, h, w) -> u8 (t, h, w, 3) frames,
+// the inverse YCoCg-R of the three decoded int16 channels (every
+// intermediate wrapped to int16, then clamped to [0, 255]).  mask: bit c
+// set where channel c is active; an inactive channel is taken as zeros and
+// its symbols are not read.  tmp16: (active channels, t, h, w) int16.
+// step: (3,) int32 on the device.  Frames of the fast form only (h >= 64,
+// w >= 256, w % 8 == 0, t even, 16-byte aligned tmp16 and rgb), else
+// cudaErrorInvalidValue; the rest as for alc_inverse_dequant.
+extern "C" int alc_inverse_dequant_rgb(const void* sym, void* tmp16, void* rgb,
+                                       const void* step, int mask, int t, int h, int w,
+                                       int n, const int* coeff, const int* predict, int sub,
+                                       int halo, int split, void* stream) {
+  const Steps st = make_steps(n, coeff, predict, sub);
+  if (bad_halo(halo, n) || mask < 0 || mask > 7 || t % 2 || !fast_frame(h, w) ||
+      !aligned(tmp16, 16) || !aligned(rgb, 16))
+    return cudaErrorInvalidValue;
+  return with_inverse(st, [&](auto f) {
+    return inverse_dequant_rgb_run<decltype(f)>(
+        (const uint8_t*)sym, (int16_t*)tmp16, (uint8_t*)rgb, (const int32_t*)step, mask, t,
+        h, w, halo, split, st, (cudaStream_t)stream);
+  });
 }
 
 // Counts, over every n in [0, 2^31) and each of the `count` quantizers in
@@ -945,14 +1279,9 @@ extern "C" int alc_forward_3d(const void* vol, void* out, void* tmp, int c,
   auto* x = (int32_t*)tmp;
   const int halo = (n + 1) & ~1;
   cudaStream_t s = (cudaStream_t)stream;
-#define ALC_K7(B)                                                                 \
-  if (is_filter<B, kForward>(st))                                                 \
-    return forward_3d_run<Filter<B, kForward>>(v, o, x, c, t, h, w, halo, st, s);
-  ALC_K7(0)
-  ALC_K7(1)
-  ALC_K7(2)
-#undef ALC_K7
-  return cudaErrorInvalidValue;
+  return with_forward(st, [&](auto f) {
+    return forward_3d_run<decltype(f)>(v, o, x, c, t, h, w, halo, st, s);
+  });
 }
 
 // Plain inverse (K7): i32 coefficients -> i32 volume, T into tmp (an i32
@@ -970,17 +1299,9 @@ extern "C" int alc_inverse_3d(const void* coeffs, void* out, void* tmp, int c,
   auto* x = (int32_t*)tmp;
   const int halo = (n + 1) & ~1;
   cudaStream_t s = (cudaStream_t)stream;
-#define ALC_K7(B, M)                                                          \
-  if (is_filter<B, M>(st))                                                    \
-    return inverse_3d_run<Filter<B, M>>(in, o, x, c, t, h, w, halo, st, s);
-  ALC_K7(0, kInverseCompat)
-  ALC_K7(1, kInverseCompat)
-  ALC_K7(2, kInverseCompat)
-  ALC_K7(0, kInverseExact)
-  ALC_K7(1, kInverseExact)
-  ALC_K7(2, kInverseExact)
-#undef ALC_K7
-  return cudaErrorInvalidValue;
+  return with_inverse(st, [&](auto f) {
+    return inverse_3d_run<decltype(f)>(in, o, x, c, t, h, w, halo, st, s);
+  });
 }
 
 // Whether alc_forward_3d (forward = 1) or alc_inverse_3d needs its tmp

@@ -3,7 +3,9 @@ PyTorch version (the counterpart of ``alice_codec_tpu/ops/pallas/``).
 
 :data:`WRAPPERS` names every kernel wrapper; each keeps a ``launches``
 count that grows by one per kernel launch on a CUDA tensor and never on
-the CPU path.
+the CPU path.  ``forward_quant`` and ``inverse_dequant`` also keep
+``rgb_launches``, the part of their launches that took RGB frames
+(``lift.forward_quant_rgb`` / ``lift.inverse_dequant_rgb``).
 """
 
 from __future__ import annotations
@@ -31,9 +33,11 @@ WRAPPERS = {
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch counts to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "rgb_launches"):
+            fn.rgb_launches = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -13,6 +13,14 @@ Each function has two forms in this module:
   never the plain version on the card.  Each launch adds one to the
   wrapper's ``launches`` count.
 
+``forward_quant_rgb`` / ``inverse_dequant_rgb`` fold the YCoCg-R colour
+(``ops/color.py``) into the fused kernels: K1 loads the interleaved uint8
+RGB frames itself and computes the colour flags as it loads, K4 writes
+RGB frames, on chunks of :func:`rgb_frame`'s form.  Their plain versions
+are the composition they replace.  They launch under the names
+``forward_quant`` / ``inverse_dequant`` (each launch also counted in the
+wrapper's ``rgb_launches``).
+
 Storage points follow the TPU kernels: int32 inside a pass; the fused
 kernels store int16 between the spatial and temporal passes
 (``o_ref.astype`` at lift_kernels.py:135 and :193), so an out-of-range
@@ -38,11 +46,14 @@ import ctypes
 import torch
 
 from ... import _build
+from ..color import rgb_to_ycocg_r, ycocg_r_to_rgb
 from ..quant import from_symbols, quantize, to_symbols
 from ..wavelet import forward_3d_inter, inverse_3d_inter, lift_axis, lift_steps
 
 __all__ = ["forward_quant", "inverse_dequant", "forward_quant_plain",
-           "inverse_dequant_plain", "forward_3d", "inverse_3d",
+           "inverse_dequant_plain", "forward_quant_rgb", "inverse_dequant_rgb",
+           "forward_quant_rgb_plain", "inverse_dequant_rgb_plain", "rgb_frame",
+           "forward_3d", "inverse_3d",
            "forward_3d_plain", "inverse_3d_plain", "reciprocal",
            "spatial_halo", "split_frame", "line_windows", "tile_windows",
            "axis_windows", "kernel_tile_windows", "kernel_axis_windows"]
@@ -74,6 +85,20 @@ def split_frame(h: int, w: int) -> bool:
     """Whether the TPU kernels split the spatial pass of an (h, w) int16
     frame, storing int16 between its W and H passes."""
     return h * w * 2 > _FRAME_BYTES
+
+
+def _fast_frame(h: int, w: int) -> bool:
+    """Whether the spatial pass clamps its windows into an (h, w) frame
+    (csrc/lift.cu ``fast_frame``)."""
+    return h >= _WIN_H and w >= _WIN_W and w % _SEG == 0
+
+
+def rgb_frame(t: int, h: int, w: int) -> bool:
+    """Whether the fused kernels take a chunk of ``t`` (h, w) RGB frames
+    themselves (:func:`forward_quant_rgb`, :func:`inverse_dequant_rgb`):
+    frames of the spatial pass's clamped-window form and an even T.  The
+    colour then runs in the tile pass's load and store."""
+    return t % 2 == 0 and _fast_frame(h, w)
 
 
 def _int16(x: torch.Tensor) -> torch.Tensor:
@@ -111,7 +136,7 @@ def tile_windows(h: int, w: int, halo: int):
     clamped into the frame (csrc/lift.cu spatial_tiles, FAST).  The
     kernel's own tiles (:func:`kernel_tile_windows`) are held equal to
     these on the card."""
-    fast = h >= _WIN_H and w >= _WIN_W and w % _SEG == 0
+    fast = _fast_frame(h, w)
     return [((r0, r1), (c0, c1), (max(wr0, 0), min(wr0 + _WIN_H, h)),
              (max(wc0, 0), min(wc0 + _WIN_W, w)))
             for r0, r1, wr0 in line_windows(h, _WIN_H, halo, fast)
@@ -178,6 +203,57 @@ def inverse_dequant_plain(symbols, wavelet, step, *, exact=False) -> torch.Tenso
     return lift_axis(x, steps, -1).to(torch.int16)
 
 
+def _check_rgb(rgb: torch.Tensor, what: str) -> None:
+    if rgb.dtype != torch.uint8 or rgb.ndim != 4 or rgb.shape[-1] != 3:
+        raise ValueError(f"{what}: expected (T, H, W, 3) uint8 frames, got "
+                         f"{tuple(rgb.shape)} {rgb.dtype}")
+
+
+def _active(active) -> tuple:
+    act = tuple(sorted(set(active)))
+    if any(c not in (0, 1, 2) for c in act):
+        raise ValueError(f"active channels must lie in (0, 1, 2), got {active}")
+    return act
+
+
+def forward_quant_rgb_plain(rgb, wavelet, step, dead_zone, *,
+                            active=(0, 1, 2)):
+    """(T, H, W, 3) uint8 RGB → ``(symbols, flags)``: YCoCg-R (int16),
+    then :func:`forward_quant_plain` over the ``active`` channels
+    (symbols (len(active), T, H, W) uint8; ``step`` / ``dead_zone``
+    scalars or one value an active channel); flags (3,) bool, which of
+    the three colour planes hold a nonzero value."""
+    _check_rgb(rgb, "forward_quant_rgb")
+    act = _active(active)
+    if not act:
+        raise ValueError("forward_quant_rgb: no active channel")
+    chans = torch.stack(rgb_to_ycocg_r(rgb))
+    flags = (chans.reshape(3, -1) != 0).any(1)
+    if act != (0, 1, 2):
+        chans = chans[list(act)]
+    return forward_quant_plain(chans, wavelet, step, dead_zone), flags
+
+
+def inverse_dequant_rgb_plain(symbols, wavelet, step, *, exact=False,
+                              active=(0, 1, 2), out=None) -> torch.Tensor:
+    """(3, T, H, W) uint8 symbols → (T, H, W, 3) uint8 RGB:
+    :func:`inverse_dequant_plain` of the ``active`` channels (the others
+    taken as zeros, their symbols unread), then inverse YCoCg-R.
+    ``step``: scalar or (3,); ``out``: a tensor to copy the frames into
+    (returned)."""
+    _check_volume(symbols, torch.uint8, "inverse_dequant_rgb")
+    act = _active(active)
+    _, t, h, w = symbols.shape
+    chans = [torch.zeros((t, h, w), dtype=torch.int16, device=symbols.device)] * 3
+    if act:
+        s = _per_channel(step, 3, symbols.device)[list(act)]
+        vol = inverse_dequant_plain(symbols[list(act)], wavelet, s, exact=exact)
+        for i, c in enumerate(act):
+            chans[c] = vol[i]
+    rgb = ycocg_r_to_rgb(*chans)
+    return rgb if out is None else out.copy_(rgb)
+
+
 def forward_3d_plain(volume, wavelet) -> torch.Tensor:
     """(C, T, H, W) int32 → int32 coefficients: W, then H, then T lift."""
     _check_volume(volume, torch.int32, "forward_3d")
@@ -204,6 +280,12 @@ def _lib() -> ctypes.CDLL:
         lib.alc_inverse_dequant.argtypes = [p, p, p, p, i, i, i, i, i,
                                             p, p, i, i, i, p]
         lib.alc_inverse_dequant.restype = i
+        lib.alc_forward_quant_rgb.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                              p, p, i, i, p]
+        lib.alc_forward_quant_rgb.restype = i
+        lib.alc_inverse_dequant_rgb.argtypes = [p, p, p, p, i, i, i, i, i,
+                                                p, p, i, i, i, p]
+        lib.alc_inverse_dequant_rgb.restype = i
         lib.alc_reciprocal_mismatches.argtypes = [p, i, p, p]
         lib.alc_reciprocal_mismatches.restype = i
         lib.alc_tile_windows.argtypes = [i, i, i, p, i]
@@ -344,6 +426,83 @@ def _inverse_dequant_cuda(symbols, wavelet, step, exact):
     return out
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned (copied where it is not)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _check_rgb_cuda(t: int, h: int, w: int, what: str) -> None:
+    if not rgb_frame(t, h, w):
+        raise ValueError(f"{what}: frames {t}x{h}x{w} are not of the fused "
+                         "kernels' form (see rgb_frame)")
+    if t > 65535 or h * w > 2**31 - 1:
+        raise ValueError(f"{what}: shape {t}x{h}x{w} exceeds the grid limit")
+
+
+def _forward_quant_rgb_cuda(rgb, wavelet, step, dead_zone, active):
+    _check_rgb(rgb, "forward_quant_rgb")
+    act = _active(active)
+    if not act:
+        raise ValueError("forward_quant_rgb: no active channel")
+    src = _aligned(rgb)
+    t, h, w, _ = src.shape
+    _check_rgb_cuda(t, h, w, "forward_quant_rgb")
+    n = len(act)
+    qp = _quant_params(step, dead_zone, n, src.device)
+    tmp16 = torch.empty((n, t, h, w), dtype=torch.int16, device=src.device)
+    out = torch.empty((n, t, h, w), dtype=torch.uint8, device=src.device)
+    flags = torch.zeros(4, dtype=torch.uint8, device=src.device)
+    nsteps, coeff, predict = _step_arrays(lift_steps(wavelet))
+    _build.check(_lib().alc_forward_quant_rgb(
+        src.data_ptr(), tmp16.data_ptr(), out.data_ptr(), qp.data_ptr(),
+        flags.data_ptr(), n, sum(c << (2 * k) for k, c in enumerate(act)),
+        t, h, w, nsteps, ctypes.addressof(coeff), ctypes.addressof(predict),
+        spatial_halo(wavelet), int(split_frame(h, w)),
+        torch.cuda.current_stream(src.device).cuda_stream),
+        "forward_quant_rgb")
+    forward_quant.launches += 1
+    forward_quant.rgb_launches += 1
+    return out, flags[:3].view(torch.bool)
+
+
+def _inverse_dequant_rgb_cuda(symbols, wavelet, step, exact, active, out):
+    _check_volume(symbols, torch.uint8, "inverse_dequant_rgb")
+    act = _active(active)
+    c, t, h, w = symbols.shape
+    if c != 3:
+        raise ValueError(f"inverse_dequant_rgb: expected 3 channels, got {c}")
+    _check_rgb_cuda(t, h, w, "inverse_dequant_rgb")
+    sym = symbols.contiguous()
+    dev = sym.device
+    s = _per_channel(step, 3, dev)
+    tmp16 = torch.empty((len(act), t, h, w), dtype=torch.int16, device=dev)
+    shape = (t, h, w, 3)
+    if out is not None and (out.shape != shape or out.dtype != torch.uint8
+                            or out.device != dev):
+        raise ValueError(f"inverse_dequant_rgb: out must be a {shape} uint8 "
+                         f"tensor on {dev}, got {tuple(out.shape)} {out.dtype} "
+                         f"on {out.device}")
+    direct = (out is not None and out.is_contiguous()
+              and out.data_ptr() % 16 == 0)
+    dst = out if direct else torch.empty(shape, dtype=torch.uint8, device=dev)
+    n, coeff, predict = _step_arrays(
+        lift_steps(wavelet, inverse=True, exact=exact))
+    _build.check(_lib().alc_inverse_dequant_rgb(
+        sym.data_ptr(), tmp16.data_ptr(), dst.data_ptr(), s.data_ptr(),
+        sum(1 << ch for ch in act), t, h, w, n,
+        ctypes.addressof(coeff), ctypes.addressof(predict), int(exact),
+        spatial_halo(wavelet), int(split_frame(h, w)),
+        torch.cuda.current_stream(dev).cuda_stream),
+        "inverse_dequant_rgb")
+    inverse_dequant.launches += 1
+    inverse_dequant.rgb_launches += 1
+    if out is not None and not direct:
+        out.copy_(dst)
+        return out
+    return dst
+
+
 def _forward_3d_cuda(volume, wavelet):
     _check_volume(volume, torch.int32, "forward_3d")
     _check_cuda_shape(volume)
@@ -407,6 +566,43 @@ def inverse_dequant(symbols: torch.Tensor, wavelet, step, *,
     raise ValueError(f"inverse_dequant: unsupported device {symbols.device}")
 
 
+def forward_quant_rgb(rgb: torch.Tensor, wavelet, step, dead_zone, *,
+                      active=(0, 1, 2)):
+    """The colour folded into :func:`forward_quant`: (T, H, W, 3) uint8
+    RGB → ``(symbols (len(active), T, H, W) uint8, flags (3,) bool)``,
+    YCoCg-R then K1 over the ``active`` channels, and which of the three
+    colour planes hold a nonzero value (whatever ``active``).  On a CUDA
+    tensor the kernel loads the RGB frames itself (frames of
+    :func:`rgb_frame`'s form; one ``forward_quant`` launch, counted in
+    ``forward_quant.launches`` and ``forward_quant.rgb_launches``)."""
+    if rgb.device.type == "cpu":
+        return forward_quant_rgb_plain(rgb, wavelet, step, dead_zone,
+                                       active=active)
+    if rgb.is_cuda:
+        return _forward_quant_rgb_cuda(rgb, wavelet, step, dead_zone, active)
+    raise ValueError(f"forward_quant_rgb: unsupported device {rgb.device}")
+
+
+def inverse_dequant_rgb(symbols: torch.Tensor, wavelet, step, *,
+                        exact: bool = False, active=(0, 1, 2),
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """The inverse colour folded into :func:`inverse_dequant`: (3, T, H,
+    W) uint8 symbols → (T, H, W, 3) uint8 RGB, K4 over the ``active``
+    channels (the others taken as zeros), then inverse YCoCg-R with its
+    int16 intermediates and the clamp.  ``out``: a (T, H, W, 3) uint8
+    tensor to write into (returned).  On a CUDA tensor the kernel's tile
+    pass writes the RGB frames itself (frames of :func:`rgb_frame`'s
+    form; one ``inverse_dequant`` launch, counted in
+    ``inverse_dequant.launches`` and ``inverse_dequant.rgb_launches``)."""
+    if symbols.device.type == "cpu":
+        return inverse_dequant_rgb_plain(symbols, wavelet, step, exact=exact,
+                                         active=active, out=out)
+    if symbols.is_cuda:
+        return _inverse_dequant_rgb_cuda(symbols, wavelet, step, exact,
+                                         active, out)
+    raise ValueError(f"inverse_dequant_rgb: unsupported device {symbols.device}")
+
+
 def forward_3d(volume: torch.Tensor, wavelet) -> torch.Tensor:
     """Plain level-0 interleaved 3D forward lift (W, then H, then T):
     (C, T, H, W) int32 (T, H, W even) → int32 coefficients."""
@@ -431,5 +627,9 @@ def inverse_3d(coeffs: torch.Tensor, wavelet, *, exact: bool = False
 
 forward_quant.launches = 0
 inverse_dequant.launches = 0
+# the launches above that took RGB frames (forward_quant_rgb /
+# inverse_dequant_rgb); not a key of ops.kernels.launch_counts()
+forward_quant.rgb_launches = 0
+inverse_dequant.rgb_launches = 0
 forward_3d.launches = 0
 inverse_3d.launches = 0

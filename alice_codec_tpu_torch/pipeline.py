@@ -24,6 +24,12 @@ The ALC3 stages (interleaved layout):
   256-bin histograms;
 * decode: symbols (3, P) → fused dequantize + inverse lift kernel →
   crop → inverse YCoCg-R → uint8 RGB;
+* where nothing is padded and the frames are of the fused kernels' fast
+  form (:func:`_rgb_route`, as at 64×1080×1920), the fused kernels take
+  the colour themselves: K1 loads the RGB frames and computes the colour
+  flags as it loads, K4 writes RGB frames (``forward_quant_rgb`` /
+  ``inverse_dequant_rgb``); elsewhere the colour and pad run as torch
+  ops (:func:`_color_pad`, ``ops/color.py``), which stay the CPU spec;
 * the modes without the fused kernels (multi-level, AnalyticalRDO, deep
   16-bit symbols): the transform is colour + pad (int32) → the plain
   level-0 3D lift kernel → the subgrid lifts of levels ≥ 1 (torch), then
@@ -51,7 +57,8 @@ from .errors import InvalidBitstream, InvalidBufferSize, InvalidDimensions
 from .ops import color, quant, wavelet
 from .ops.rans import RANS32_L, FrequencyTable, RansDecoder, RansEncoder
 from .ops.kernels.lift import (_FRAME_BYTES, forward_3d, forward_quant,
-                               inverse_3d, inverse_dequant)
+                               forward_quant_rgb, inverse_3d, inverse_dequant,
+                               inverse_dequant_rgb, rgb_frame)
 from .ops.kernels.sparse import tile_rows
 
 __all__ = ["ChannelHeader", "EncodedChunk", "FrameEncoder", "FrameDecoder",
@@ -89,6 +96,32 @@ def _color_pad(rgb: torch.Tensor, padded, dtype=torch.int16) -> torch.Tensor:
     if pw != w:
         chans = chans.index_select(3, _edge_index(w, pw, dev))
     return chans.contiguous()
+
+
+def _rgb_route(dims, padded) -> bool:
+    """Whether the fused kernels take the colour themselves
+    (``forward_quant_rgb`` / ``inverse_dequant_rgb``) for a (w, h, t)
+    chunk padded to ``padded``: where nothing is padded and the frames are
+    of the kernels' fast form (``lift.rgb_frame``).  Padded, ragged or
+    small frames keep :func:`_color_pad` and the int16 volume.  A function
+    of the shape alone: the same on every device."""
+    w, h, t = dims
+    return tuple(padded) == (w, h, t) and rgb_frame(t, h, w)
+
+
+def _dims(rgb: torch.Tensor):
+    """(w, h, t) of a (T, H, W, 3) chunk."""
+    t, h, w = rgb.shape[:3]
+    return w, h, t
+
+
+def _lift_quant(rgb: torch.Tensor, wavelet_type, step, dead_zone, padded
+                ) -> torch.Tensor:
+    """colour → edge-pad → K1: uint8 (T, H, W, 3) → uint8 symbols (3, pT,
+    pH, pW), with the colour in K1's load where :func:`_rgb_route`."""
+    if _rgb_route(_dims(rgb), padded):
+        return forward_quant_rgb(rgb, wavelet_type, step, dead_zone)[0]
+    return forward_quant(_color_pad(rgb, padded), wavelet_type, step, dead_zone)
 
 
 def _pick_tile(n: int, cap: int) -> int:
@@ -180,8 +213,7 @@ def _symbols(rgb: torch.Tensor, step, dead_zone, *, wavelet_type, padded,
     :func:`_transform`, then quantize and zigzag."""
     pw, ph, pf = padded
     if levels == 1 and _tpu_fused(padded):
-        sym = forward_quant(_color_pad(rgb, padded), wavelet_type, step,
-                            dead_zone)
+        sym = _lift_quant(rgb, wavelet_type, step, dead_zone, padded)
     else:
         coeffs = _transform(rgb, wavelet_type, padded, levels)
         sym = quant.to_symbols(quant.quantize(coeffs, step, dead_zone))
@@ -209,8 +241,7 @@ def encode_device(rgb: torch.Tensor, step: int, dead_zone: int, *,
                            padded=padded, levels=levels)
     else:
         _check_reference_levels(levels)
-        sym = forward_quant(_color_pad(rgb, padded), wavelet_type, step,
-                            dead_zone)
+        sym = _lift_quant(rgb, wavelet_type, step, dead_zone, padded)
         symbols = wavelet.deinterleave_3d(sym).reshape(3, -1)
     return symbols, _histograms(symbols, hist_stride)
 
@@ -285,7 +316,8 @@ def decode_deep_device(planes: torch.Tensor, step: torch.Tensor, *,
 def decode_device(symbols: torch.Tensor, step: torch.Tensor, *,
                   wavelet_type: WaveletType, dims, padded,
                   exact: bool = False, levels: int = 1,
-                  active=None, interleaved: bool = False) -> torch.Tensor:
+                  active=None, interleaved: bool = False,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """Decode stage: symbols (3, P) uint8 → RGB (T, H, W, 3) uint8.
     ``step``: per-channel (3,) quant steps.  ``exact`` selects the
     exact-undo inverse; the default replays the reference's
@@ -306,34 +338,43 @@ def decode_device(symbols: torch.Tensor, step: torch.Tensor, *,
     ``active`` (fused only): the channels that may carry nonzero
     symbols.  An all-zero channel inverse-lifts to exact zeros, so only
     the active ones go through the kernel and the rest are zeros
-    (bit-exact)."""
+    (bit-exact).  Where :func:`_rgb_route`, the kernel writes the RGB
+    frames itself.
+
+    ``out``: a (T, H, W, 3) uint8 tensor to write the frames into
+    (returned); the fused route's kernel writes there directly."""
     w, h, t = dims
     pw, ph, pf = padded
     if not interleaved:
         _check_reference_levels(levels)
         sym = wavelet.interleave_3d(symbols.reshape(3, pf, ph, pw))
         q = quant.from_symbols(sym)
-        return _inverse_rgb(quant.dequantize(q, step.reshape(3, 1, 1, 1)),
-                            wavelet_type, dims, 1, exact)
-    if levels > 1 or not _tpu_fused(padded):
+        rgb = _inverse_rgb(quant.dequantize(q, step.reshape(3, 1, 1, 1)),
+                           wavelet_type, dims, 1, exact)
+    elif levels > 1 or not _tpu_fused(padded):
         q = quant.from_symbols(symbols).reshape(3, pf, ph, pw)
-        return _inverse_rgb(quant.dequantize(q, step.reshape(3, 1, 1, 1)),
-                            wavelet_type, dims, levels, exact)
-    sym4 = symbols.reshape(3, pf, ph, pw)
-    act = (0, 1, 2) if active is None else tuple(sorted(active))
-    if act == (0, 1, 2):
-        volume = inverse_dequant(sym4, wavelet_type, step, exact=exact)
-        chans = [volume[c, :t, :h, :w] for c in range(3)]
+        rgb = _inverse_rgb(quant.dequantize(q, step.reshape(3, 1, 1, 1)),
+                           wavelet_type, dims, levels, exact)
     else:
-        chans = [torch.zeros((t, h, w), dtype=torch.int16,
-                             device=symbols.device)] * 3
-        if act:
-            idx = torch.tensor(act, device=symbols.device)
-            volume = inverse_dequant(sym4[idx], wavelet_type,
-                                     step.reshape(-1)[idx], exact=exact)
-            for i, c in enumerate(act):
-                chans[c] = volume[i, :t, :h, :w]
-    return color.ycocg_r_to_rgb(chans[0], chans[1], chans[2])
+        act = (0, 1, 2) if active is None else tuple(sorted(active))
+        sym4 = symbols.reshape(3, pf, ph, pw)
+        if _rgb_route(dims, padded):
+            return inverse_dequant_rgb(sym4, wavelet_type, step, exact=exact,
+                                       active=act, out=out)
+        if act == (0, 1, 2):
+            volume = inverse_dequant(sym4, wavelet_type, step, exact=exact)
+            chans = [volume[c, :t, :h, :w] for c in range(3)]
+        else:
+            chans = [torch.zeros((t, h, w), dtype=torch.int16,
+                                 device=symbols.device)] * 3
+            if act:
+                idx = torch.tensor(act, device=symbols.device)
+                volume = inverse_dequant(sym4[idx], wavelet_type,
+                                         step.reshape(-1)[idx], exact=exact)
+                for i, c in enumerate(act):
+                    chans[c] = volume[i, :t, :h, :w]
+        rgb = color.ycocg_r_to_rgb(chans[0], chans[1], chans[2])
+    return rgb if out is None else out.copy_(rgb)
 
 
 def encode_sparse_phase1(rgb: torch.Tensor, step: int, dead_zone: int, *,
@@ -358,6 +399,10 @@ def encode_sparse_phase1(rgb: torch.Tensor, step: int, dead_zone: int, *,
                            padded=padded, levels=levels)
         if active != (0, 1, 2):
             symbols = symbols[torch.tensor(active, device=rgb.device)]
+    elif _rgb_route(_dims(rgb), padded):
+        symbols, flags = forward_quant_rgb(rgb, wavelet_type, step, dead_zone,
+                                           active=active)
+        symbols = symbols.reshape(len(active), pf * ph * pw)
     else:
         chans = _color_pad(rgb, padded)
         flags = (chans.reshape(3, -1) != 0).any(1)

@@ -29,7 +29,10 @@ Phases (any failure raises and exits non-zero before the last line):
    word-rANS kernels again on the north star's planes as its one launch
    each way gets them;
    with per-kernel timings and the lifts' device time split by kernel
-   (spatial and temporal pass); then a 4K check (16×2160×3840, where the
+   (spatial and temporal pass), K1 from RGB and K4 to RGB (the colour in
+   the tile pass, the codec's route at this chunk) against the plain
+   composition, flags included, timed beside their 2-byte bound; then a
+   4K check (16×2160×3840, where the
    JAX package splits its spatial pass into single-axis band kernels):
    the fused lifts and the plain 3D lift (all three wavelets, both
    inverse modes) on that chunk against their plain versions, and a
@@ -41,7 +44,8 @@ Phases (any failure raises and exits non-zero before the last line):
 4. the paths at full width, each over one 64×1080×1920 chunk kept on
    the card, with the launch counts of every kernel set to 0 just before
    the path's encode → decode and read just after (each ALC3 path must
-   launch ``encode_words`` and ``decode_words`` exactly once):
+   launch ``encode_words`` and ``decode_words`` exactly once, and every
+   K1 / K4 launch of an ALC3 path take RGB frames, ``rgb_launches``):
    ``Alc3Codec(90, "cdf53")`` (dense), the north star
    ``Alc3Codec(90, "cdf53", sparse=True)``,
    ``Alc3Codec(50, "cdf53", sparse=True)``, ``Alc3Codec(100, "haar")``
@@ -263,6 +267,8 @@ def plain_kernels():
     swaps = [
         (pipeline, "forward_quant", lift.forward_quant_plain),
         (pipeline, "inverse_dequant", lift.inverse_dequant_plain),
+        (pipeline, "forward_quant_rgb", lift.forward_quant_rgb_plain),
+        (pipeline, "inverse_dequant_rgb", lift.inverse_dequant_rgb_plain),
         (pipeline, "forward_3d", lift.forward_3d_plain),
         (pipeline, "inverse_3d", lift.inverse_3d_plain),
         (alc3, "encode_words", rans3.encode_words_plain),
@@ -738,7 +744,9 @@ def main() -> int:
         launch_counts, lift, rans3, rans_nway, reset_launches)
     from alice_codec_tpu_torch.ops.kernels.lift import (
         forward_3d, forward_3d_plain, forward_quant, forward_quant_plain,
-        inverse_3d, inverse_3d_plain, inverse_dequant, inverse_dequant_plain)
+        forward_quant_rgb, forward_quant_rgb_plain, inverse_3d, inverse_3d_plain,
+        inverse_dequant, inverse_dequant_plain, inverse_dequant_rgb,
+        inverse_dequant_rgb_plain)
     from alice_codec_tpu_torch.ops.kernels.rans3 import (
         NG, decode_words, decode_words_plain, encode_words, encode_words_plain)
     from alice_codec_tpu_torch.ops.kernels.sparse import (
@@ -1021,6 +1029,45 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"full width: forward_quant / inverse_dequant bit-exact at {T}x{H}x{W} "
           "(3 wavelets, both inverse modes)")
+
+    # K1 from RGB and K4 to RGB (the colour in the tile pass's load and
+    # store, the route of this chunk) at full width: every wavelet, both
+    # inverse modes, bit-exact against the plain composition (_color_pad +
+    # K1 and the colour flags; K4 + ycocg_r_to_rgb), each timed beside the
+    # bound of its interface (uint8 RGB and uint8 symbols: 2 bytes a
+    # coefficient) and split by kernel
+    check(pipeline._rgb_route((W, H, T), padded), "the chunk is not on the RGB route")
+    rgb_bound = bound_ms(chans.numel() * 2)
+    rgb_ms = {"forward_quant": {}, "inverse_dequant": {}}
+    for w_full in WaveletType:
+        n1 = lift.forward_quant.rgb_launches
+        sym_r, flags_r = forward_quant_rgb(rgb, w_full, step, step)
+        sym_p, flags_p = forward_quant_rgb_plain(rgb, w_full, step, step)
+        torch.cuda.synchronize()
+        check(lift.forward_quant.rgb_launches == n1 + 1, "forward_quant_rgb launches")
+        check(max_abs_err(sym_r, sym_p) == 0 and bool(torch.equal(flags_r, flags_p)),
+              f"forward_quant_rgb {w_full.name} differs from its plain version")
+        del sym_p
+        for exact in (False, True):
+            e = max_abs_err(inverse_dequant_rgb(sym_r, w_full, steps3, exact=exact),
+                            inverse_dequant_rgb_plain(sym_r, w_full, steps3, exact=exact))
+            check(e == 0, f"inverse_dequant_rgb {w_full.name} exact={exact} differs by {e}")
+        torch.cuda.empty_cache()
+        fns = {"forward_quant": lambda: forward_quant_rgb(rgb, w_full, step, step),
+               "inverse_dequant": lambda: inverse_dequant_rgb(sym_r, w_full, steps3)}
+        for name, fn in fns.items():
+            rgb_ms[name][w_full.name] = ms = time_ms(fn, 10)
+            split = kernel_split(fn, need=("spatial_tiles", "temporal_" + name.split("_")[1]))
+            if w_full == wt:
+                stats[name]["rgb"] = dict(max_abs_err=0, ms=ms, bound_ms=rgb_bound,
+                                          kernel_split=split, ms_by_wavelet=rgb_ms[name])
+            print(f"{name} from/to RGB {w_full.name}: {ms:.3f} ms per call (bytes "
+                  f"bound {rgb_bound:.3f} ms); one call by kernel: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f" [{card}]")
+        del sym_r
+        torch.cuda.empty_cache()
+    print(f"full width: forward_quant_rgb / inverse_dequant_rgb bit-exact at {T}x{H}x{W} "
+          "(3 wavelets, both inverse modes, the colour flags)")
 
     # K7 at full width: the plain 3D lift of the int32 chunk, all three
     # wavelets, both inverse modes
@@ -1609,6 +1656,7 @@ def main() -> int:
 
     dense_rgb = {}
     by_path = {}
+    rgb_by_path = {}
     for name, codec in paths.items():
         exact = codec.deep  # deep q=100 is lossless with the exact inverse
         out = codec.decode(codec.encode(rgb))  # warm-up (fills the caches)
@@ -1619,8 +1667,14 @@ def main() -> int:
         out = codec.decode(chunk, exact=exact)
         torch.cuda.synchronize()
         launches = launch_counts()
-        print(f"{name} launches: {launches}")
+        rgb_by_path[name] = rgb_n = (lift.forward_quant.rgb_launches,
+                                     lift.inverse_dequant.rgb_launches)
+        print(f"{name} launches: {launches}; of K1 / K4 from / to RGB: {rgb_n}")
         fused = not (codec.rdo or codec.deep or codec.levels > 1)
+        # the colour in K1's load and K4's store wherever K1 / K4 run here
+        check(rgb_n == (launches["forward_quant"], launches["inverse_dequant"])
+              and rgb_n[1] == fused,
+              f"{name}: K1 / K4 RGB launches {rgb_n}, launches {launches}")
         if fused:
             need = ["forward_quant", "encode_words", "decode_words",
                     "inverse_dequant"]
@@ -1806,6 +1860,9 @@ def main() -> int:
                 want.update(compact=1, expand=1)
             check(only_launches(launches, want), f"{name}: expected {want}, got {launches}")
             by_path[name] = launches
+            rgb_by_path[name] = rgb_n = (lift.forward_quant.rgb_launches,
+                                         lift.inverse_dequant.rgb_launches)
+            check(rgb_n == (2, 2), f"{name}: K1 / K4 RGB launches {rgb_n}")
             datas = [Alc3Codec.to_bytes(c) for c in chunks]
             with plain_kernels():
                 p_codec = Alc3Codec(**settings(codec))
@@ -2109,12 +2166,15 @@ def main() -> int:
             "source": f"alice_codec_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches,
             "launches_by_path": by,
+            **({"rgb_launches_by_path": {
+                path: n[name == "inverse_dequant"] for path, n in rgb_by_path.items()}}
+               if name in ("forward_quant", "inverse_dequant") else {}),
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
         })
         for extra in ("kernel_ms", "ms_in_place", "plain_streams", "plain_pack_ms",
-                      "passes_ms",
+                      "passes_ms", "rgb",
                       "ms_by_wavelet",
                       "kernel_split", "planes_north_star", "ms_north_star",
                       "bound_ms_north_star"):

@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from alice_codec_tpu_torch import (Alc3Codec, EncodedChunk, FrameDecoder,
-                                   FrameEncoder, FrequencyTable, WaveletType)
+                                   FrameEncoder, FrequencyTable, WaveletType,
+                                   pipeline)
+from alice_codec_tpu_torch.ops.color import ycocg_r_to_rgb
 from alice_codec_tpu_torch.ops.kernels import (launch_counts, lift, rans3,
                                                 rans_nway, reset_launches, sparse)
 from alice_codec_tpu_torch.parallel import BatchFrameDecoder, BatchFrameEncoder
@@ -195,6 +197,125 @@ def test_codec_on_card_matches_golden_and_cpu(cuda):
                        device="cpu")
     assert (Alc3Codec.to_bytes(on_card.encode(rgb))
             == Alc3Codec.to_bytes(on_cpu.encode(rgb)))
+    # the north star's codec on chunks of the fused colour route (a colour
+    # chunk, then a grey one twice: its second encode elides the chroma
+    # planes the first found zero): one RGB launch of K1 an encode and of
+    # K4 a decode, the CPU's wire and frames, and a batch decode whose K4
+    # writes each chunk into the batch's tensor
+    from chip_smoke import golden_input
+
+    gray = golden_input("gray", 4, (8, 256, 256))
+    chunks = [golden_input("chunk", 3, (8, 256, 256)), gray, gray]
+    assert pipeline._rgb_route((256, 256, 8), (256, 256, 8))
+    card = Alc3Codec(90, "cdf53", sparse=True, s_seg=8)
+    cpu = Alc3Codec(90, "cdf53", sparse=True, s_seg=8, device="cpu")
+    k1, k4 = lift.forward_quant, lift.inverse_dequant
+    coded = []
+    for x in chunks:
+        n1, n4 = k1.rgb_launches, k4.rgb_launches
+        c = card.encode(x)
+        out = card.decode(c)
+        torch.cuda.synchronize()
+        assert (k1.rgb_launches - n1, k4.rgb_launches - n4) == (1, 1)
+        want = cpu.encode(x)
+        assert Alc3Codec.to_bytes(c) == Alc3Codec.to_bytes(want)
+        assert np.array_equal(out.cpu().numpy(), cpu.decode(want, as_numpy=True))
+        coded.append((c, out))
+    assert coded[2][0].kcaps[1:] == (0, 0)
+    n4 = k4.rgb_launches
+    both = card.decode_batch([c for c, _ in coded])
+    assert k4.rgb_launches - n4 == 3
+    assert all(torch.equal(both[i], out) for i, (_, out) in enumerate(coded))
+
+
+def _rgb_inputs(rng, t, h, w):
+    """Random bytes, 0/255 stripes (Co and Cg at ±255) and a grey chunk."""
+    stripes = np.zeros((t, h, w, 3), np.uint8)
+    stripes[:, :, ::2, 0] = 255
+    stripes[:, ::3, :, 2] = 255
+    stripes[:, :, 1::4, 1] = 255
+    gray = rng.integers(0, 256, (t, h, w, 1), dtype=np.uint8)
+    return {"noise": rng.integers(0, 256, (t, h, w, 3), dtype=np.uint8),
+            "stripes": stripes, "gray": np.repeat(gray, 3, axis=3)}
+
+
+@pytest.mark.parametrize("wt", list(WaveletType))
+@pytest.mark.parametrize("shape", [
+    # the smallest fast frame; rows that end 8 bytes off a 16-byte line
+    # (3 W = 3000); T = 64 (the temporal pass in registers); tiles ragged
+    # in H and W
+    (2, 64, 256), (4, 64, 1000), (64, 64, 256), (2, 130, 520)])
+def test_lift_rgb_kernels_match_plain(cuda, wt, shape):
+    """K1 loading RGB (the colour and its flags in the tile load) and K4
+    writing RGB (the inverse colour in the tile store) against the plain
+    composition: _color_pad + forward_quant_plain and the flags; the
+    plain inverse + ycocg_r_to_rgb, on symbols that decode far outside
+    [0, 255] (the int16 wrap and the clamp), for every active set."""
+    t, h, w = shape
+    rng = np.random.default_rng(sum(shape) + int(wt))
+    k1, k4 = lift.forward_quant, lift.inverse_dequant
+    for kind, x in _rgb_inputs(rng, t, h, w).items():
+        rgb = torch.as_tensor(x, device=cuda)
+        chans = pipeline._color_pad(rgb, (w, h, t))
+        want_flags = (chans.reshape(3, -1) != 0).any(1)
+        if kind == "gray":
+            assert want_flags.tolist() == [True, False, False]
+        for act in ((0,), (0, 1), (0, 2), (0, 1, 2)):
+            n1 = k1.rgb_launches
+            sym, flags = lift.forward_quant_rgb(rgb, wt, 6, 6, active=act)
+            torch.cuda.synchronize()
+            assert k1.rgb_launches == n1 + 1
+            assert _equal(sym, lift.forward_quant_plain(chans[list(act)], wt, 6, 6))
+            assert _equal(flags, want_flags), (kind, act)
+    sym = torch.as_tensor(rng.integers(0, 256, (3, t, h, w), dtype=np.uint8),
+                          device=cuda)
+    step = torch.tensor([64, 160, 96], dtype=torch.int32, device=cuda)
+    for exact in (False, True):
+        for act in ((0,), (0, 1), (0, 2), (0, 1, 2), ()):
+            zero = torch.zeros((t, h, w), dtype=torch.int16, device=cuda)
+            chans = [zero] * 3
+            if act:
+                vol = lift.inverse_dequant_plain(sym[list(act)], wt,
+                                                 step[list(act)], exact=exact)
+                for i, c in enumerate(act):
+                    chans[c] = vol[i]
+            want = ycocg_r_to_rgb(*chans)
+            n4 = k4.rgb_launches
+            assert _equal(lift.inverse_dequant_rgb(sym, wt, step, exact=exact,
+                                                   active=act), want)
+            out = torch.zeros((2, t, h, w, 3), dtype=torch.uint8, device=cuda)
+            assert lift.inverse_dequant_rgb(sym, wt, step, exact=exact,
+                                            active=act, out=out[1]) is not None
+            torch.cuda.synchronize()
+            assert k4.rgb_launches == n4 + 2
+            assert _equal(out[1], want) and not out[0].any()
+
+
+@pytest.mark.parametrize("shape", [(4, 63, 257), (4, 32, 64), (2, 2160, 3840)])
+def test_codec_rgb_route_by_shape_on_card_matches_cpu(cuda, shape):
+    """One chunk of each other route: padded odd dims and a small frame
+    keep _color_pad and the int16 volume (no RGB launch); the 4K split
+    frame's route is as _rgb_route decides it.  Either way the wire and
+    the frames are the CPU's."""
+    from chip_smoke import golden_input
+
+    t, h, w = shape
+    x = golden_input("chunk", 9, shape)
+    fused = pipeline._rgb_route((w, h, t), pipeline.padded_dims(w, h, t))
+    assert fused == (shape == (2, 2160, 3840))
+    k1, k4 = lift.forward_quant, lift.inverse_dequant
+    n1, n4, n = k1.rgb_launches, k4.rgb_launches, launch_counts()
+    card = Alc3Codec(90, "cdf53", sparse=True, s_seg=8)
+    c = card.encode(x)
+    out = card.decode(c, as_numpy=True)
+    counts = launch_counts()
+    assert (counts["forward_quant"] - n["forward_quant"],
+            counts["inverse_dequant"] - n["inverse_dequant"]) == (1, 1)
+    assert (k1.rgb_launches - n1, k4.rgb_launches - n4) == (fused, fused)
+    cpu = Alc3Codec(90, "cdf53", sparse=True, s_seg=8, device="cpu")
+    want = cpu.encode(x)
+    assert Alc3Codec.to_bytes(c) == Alc3Codec.to_bytes(want)
+    assert np.array_equal(out, cpu.decode(want, as_numpy=True))
 
 
 @pytest.mark.parametrize("density", [0.0, 0.03, 0.3, 1.0])

@@ -9,7 +9,13 @@ K4 ``inverse_dequant`` (compat and exact inverse) in every wavelet, each
 checked bit-exact against its plain version, timed and split by kernel
 with ``chip_smoke.py``'s own helpers (``time_ms``, ``kernel_split``: the
 numbers are taken as phase 2 there takes them), with the wrappers' peak
-device memory above their inputs; then K7 (``forward_3d`` /
+device memory above their inputs; the colour route, RGB frames to
+symbols and back as the codec runs it at this chunk (a checkout with
+``forward_quant_rgb`` / ``inverse_dequant_rgb``: the colour in K1's load
+and K4's store; one without: ``_color_pad`` + K1 and K4 +
+``ycocg_r_to_rgb``), checked equal to the plain composition and timed
+beside its bound at 2 bytes a coefficient (uint8 RGB, uint8 symbols);
+then K7 (``forward_3d`` /
 ``inverse_3d`` in compat and exact form, int32) in every wavelet, at that
 chunk and at the 4K check's (16×2160×3840), likewise checked, timed and
 split by kernel (the split names whatever kernels the checkout's K7
@@ -53,6 +59,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(args.repo.resolve()))
     from alice_codec_tpu_torch import WaveletType, _build, pipeline, quality_to_step
+    from alice_codec_tpu_torch.ops import color
+    from alice_codec_tpu_torch.ops.kernels import lift
     from alice_codec_tpu_torch.ops.kernels.lift import (
         forward_3d, forward_3d_plain, forward_quant, forward_quant_plain,
         inverse_3d, inverse_3d_plain, inverse_dequant, inverse_dequant_plain)
@@ -64,13 +72,28 @@ def main() -> int:
     print(card)
     _build.build(("lift",))
     dev = torch.device("cuda")
-    vol = pipeline._color_pad(torch.as_tensor(_test_chunk(T, H, W), device=dev),
-                              (W, H, T))
+    rgb = torch.as_tensor(_test_chunk(T, H, W), device=dev)
+    vol = pipeline._color_pad(rgb, (W, H, T))
     step = quality_to_step(QUALITY)
     steps3 = torch.full((3,), step, dtype=torch.int32, device=dev)
+    fused_rgb = hasattr(lift, "forward_quant_rgb")
+    if fused_rgb:
+        def k1_colour(wt):
+            return lift.forward_quant_rgb(rgb, wt, step, step)[0]
+
+        def k4_colour(sym, wt):
+            return lift.inverse_dequant_rgb(sym, wt, steps3)
+    else:
+        def k1_colour(wt):
+            return forward_quant(pipeline._color_pad(rgb, (W, H, T)), wt, step, step)
+
+        def k4_colour(sym, wt):
+            return color.ycocg_r_to_rgb(*inverse_dequant(sym, wt, steps3))
     res = {"card": card, "label": args.label, "repo": str(args.repo.resolve()),
            "shape": list(vol.shape),
            "k1k4_bound_ms": bound_ms(vol.numel() * 3),
+           "colour_route": "rgb kernels" if fused_rgb else "torch colour + K1 / K4",
+           "colour_bound_ms": bound_ms(vol.numel() * 2),
            "k7_bound_ms": bound_ms(vol.numel() * 8)}
     for wt in WaveletType:
         sym = forward_quant(vol, wt, step, step)
@@ -90,6 +113,24 @@ def main() -> int:
                 lambda: inverse_dequant(sym, wt, steps3, exact=True), REPS),
             "forward_quant_split": kernel_split(fwd),
             "inverse_dequant_split": kernel_split(inv)}
+        c_sym = k1_colour(wt)
+        r["colour_bit_exact"] = bool(torch.equal(c_sym, sym)) and bool(torch.equal(
+            k4_colour(sym, wt),
+            color.ycocg_r_to_rgb(*inverse_dequant_plain(sym, wt, steps3))))
+        del c_sym
+        torch.cuda.empty_cache()
+        r["k1_colour_ms"] = time_ms(lambda: k1_colour(wt), REPS)
+        r["k4_colour_ms"] = time_ms(lambda: k4_colour(sym, wt), REPS)
+        r["k1_colour_split"] = kernel_split(lambda: k1_colour(wt))
+        r["k4_colour_split"] = kernel_split(lambda: k4_colour(sym, wt))
+        print(f"{args.label} {wt.name} colour route ({res['colour_route']}): equal "
+              f"{r['colour_bit_exact']}; RGB -> symbols {r['k1_colour_ms']:.3f} ms, "
+              f"symbols -> RGB {r['k4_colour_ms']:.3f} ms (bound "
+              f"{res['colour_bound_ms']:.3f} ms each) [{card}]")
+        for what in ("k1_colour_split", "k4_colour_split"):
+            print(f"  {what}: " + ", ".join(f"{k} {v:.3f}" for k, v in r[what].items()))
+        ok &= r["colour_bit_exact"]
+        r["bit_exact"] = ok
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         fwd()
@@ -107,7 +148,7 @@ def main() -> int:
         del sym
         torch.cuda.empty_cache()
     vols32 = {"1080p": vol.to(torch.int32)}
-    del vol
+    del vol, rgb
     rgb4k = torch.as_tensor(_test_chunk(T4K, H4K, W4K, seed=1), device=dev)
     vols32["4k"] = pipeline._color_pad(rgb4k, (W4K, H4K, T4K), torch.int32)
     del rgb4k
