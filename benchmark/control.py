@@ -5,15 +5,16 @@
 
 For each seed it makes the cell's pool on the card and judges, with the
 same comparison a run makes (``checks.py``), what the control puts in the
-program's place for every pool chunk:
+program's place for every pool chunk.  The configuration's reference
+module says what that is (its ``control_samples``, given the
+configuration's driver as the program); ``alc3_plain``'s:
 
 * a lossy configuration (integer lifting with an int16 store between the
   spatial and the temporal pass): the plain reference with that store
   lowered to int8, the next precision down;
 * a lossless configuration: the program itself with its own non-exact
   inverse (``exact=False``, the compat replay), which breaks the
-  configuration's "lossless" guarantee (its int32 lifting held at int16
-  changes nothing on 8-bit video, so a lower precision is no control).
+  configuration's "lossless" guarantee.
 
 It prints one JSON line a seed with the numbers and whether they pass,
 and exits 1 if any seed's control passed.  The benchmark's runs never
@@ -33,29 +34,16 @@ for p in (str(HERE), str(ROOT)):
 
 
 def control_samples(cell, seed: int, device: str):
-    """(input, symbols or chunk, decoded) triples of the control."""
-    import torch
-
-    import checks
+    """(input, symbols or coded form, decoded) triples of the control."""
     import harness
+
     cfg = cell.config
     geo = cfg["chunk"]
     pool = harness.generator(cell.root, cell.traffic).make_pool(
         cell.traffic["content"], int(cell.traffic["pool"]), seed, geo["frames"],
         geo["height"], geo["width"], device)
-    if cfg.get("lossless"):
-        from alice_codec_tpu_torch import Alc3Codec
-
-        codec = Alc3Codec(**cfg["codec"], device=device)
-        for x in pool:
-            c = codec.encode(x)
-            yield x, c, codec.decode(c, exact=False)
-    else:
-        ref = checks.reference_of(cfg)
-        low = checks.spec_of(cfg, store=torch.int8)
-        for x in pool:
-            sym = ref.forward_symbols(x, low)
-            yield x, sym, ref.inverse_rgb(sym, low)
+    return harness.reference(cell.root, cfg).control_samples(
+        pool, cfg, lambda config: cell.driver.Driver(config, device))
 
 
 def main(argv=None) -> int:
@@ -74,9 +62,10 @@ def main(argv=None) -> int:
         print("control: no CUDA device", file=sys.stderr)
         return 3
     cell = harness.load_cell(ROOT, args.workload)
+    ref = harness.reference(ROOT, cell.config)
     passed_any = False
     for seed in args.seeds:
-        numbers, failed = checks.judge(control_samples(cell, seed, args.device), cell.config)
+        numbers, failed = checks.judge(control_samples(cell, seed, args.device), cell.config, ref)
         ok = checks.passed(numbers)
         passed_any |= ok
         print(json.dumps({"workload": cell.name, "seed": seed, "control": numbers,

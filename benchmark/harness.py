@@ -1,23 +1,35 @@
 """The benchmark's harness: finds a cell's parts by name, drives the
 port through the cell's window and reports the contract's result line.
 
-Everything that belongs to one configuration, one traffic mix or one
-metric is a file of its own, found by the name ``BENCHMARK.json`` gives:
+Everything that belongs to one configuration, one codec, one traffic mix
+or one metric is a file of its own, found by the name ``BENCHMARK.json``
+or the configuration gives:
 
-* a configuration: ``configs[i].file`` (a JSON file of the chunk geometry,
-  the keyword arguments of the codec the harness drives, ALC3's
-  ``Alc3Codec``, the decode's, and the name of its plain reference, a
-  module of ``benchmark/reference/``);
+* a configuration: ``configs[i].file``, a JSON file of the chunk
+  geometry, the codec's keyword arguments (``codec``) and the decode's
+  (``decode``), and the names of its driver and its plain reference;
+* a driver: ``benchmark/drivers/<driver>.py``, the codec under test (for
+  ALC3 ``drivers/alc3.py``): it builds it from the configuration, makes the
+  chunk and batch encode and decode calls, splits a roundtrip into the
+  units to judge and says what the roofline needs of them (its
+  docstring lists what a driver gives);
+* a plain reference: ``benchmark/reference/<reference>.py``, whose
+  ``judge_one`` gives one unit's numbers (``checks.py`` holds their
+  limits) and whose ``control_samples`` gives the control
+  (``control.py``); it imports nothing of the program;
 * a traffic mix: ``benchmark/traffic/<traffic>.json`` (the pool, the loop,
   the profiled roundtrips, and the content parameters its ``generator``
   module in the same folder reads);
 * a metric: ``benchmark/metrics/<name>.py``, whose ``read(ctx)`` returns
   the number or None (nothing to read: the metric is left out).
 
-A key the harness does not read is refused (:data:`CONFIG_KEYS`,
-:data:`TRAFFIC_KEYS`; the generator refuses content keys it does not
-know), so no file can seem to set what the run ignores.  Another codec
-than ALC3 (the ALC2 batch, the ``.alc`` wire) needs a driver here.
+So a new codec, configuration, mix or metric is new files and entries,
+and this file names no codec and no field of a coded chunk.  A
+configuration without a driver, or naming a part that is not there, is
+refused, and so is a key the harness or the driver does not read
+(:data:`CONFIG_KEYS`, the driver's ``DECODE_KEYS``, :data:`TRAFFIC_KEYS`;
+the generator refuses content keys it does not know), so no file can
+seem to set what the run ignores.
 
 A run: set-up (import, the kernels, the pool made on the device from the
 seed, one warm roundtrip of every pool chunk), then a closed loop of one
@@ -34,11 +46,12 @@ from __future__ import annotations
 import importlib.util
 import json
 import random
+import re
 import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from types import SimpleNamespace
+from types import ModuleType
 
 import checks
 
@@ -48,11 +61,13 @@ FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "alice_codec_tpu", "bench", "ben
 
 #: the keys a configuration file may hold: those the harness reads, and
 #: free text that documents the deployment
-CONFIG_KEYS = frozenset({"chunk", "codec", "decode", "reference", "lossless", "name",
+CONFIG_KEYS = frozenset({"chunk", "codec", "decode", "driver", "reference", "lossless", "name",
                          "source", "deployment", "precision", "guarantees", "assumed"})
 #: the keys a traffic mix may hold
 TRAFFIC_KEYS = frozenset({"generator", "pool", "loop", "profile_roundtrips", "content"})
 LOOPS = ("chunk", "batch")
+#: the contract's names, which a part's file is named by
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 class CellError(ValueError):
@@ -72,6 +87,7 @@ class ForbiddenModules(RuntimeError):
 class Cell:
     name: str
     config: dict
+    driver: ModuleType       # the configuration's drivers/<driver>.py
     traffic: dict
     chips: int
     end_to_end: list
@@ -117,14 +133,18 @@ def load_cell(root: Path, name: str) -> Cell:
     traffic = _load_json(root / "benchmark" / "traffic" / f"{entry['traffic']}.json",
                          f"traffic {entry['traffic']}")
     _only(config, CONFIG_KEYS, f"config {entry['config']}")
-    _only(config["decode"], {"exact"}, f"config {entry['config']} decode")
+    if "driver" not in config:
+        raise CellError(f"config {entry['config']} names no driver")
+    drv = driver(root, config["driver"])
+    _only(config["decode"], drv.DECODE_KEYS, f"config {entry['config']} decode")
+    _part(root, "reference", config["reference"])
     _only(config["chunk"], {"frames", "height", "width"}, f"config {entry['config']} chunk")
     _only(traffic, TRAFFIC_KEYS, f"traffic {entry['traffic']}")
     if traffic["loop"] not in LOOPS:
         raise CellError(f"traffic {entry['traffic']}: unknown loop {traffic['loop']!r}")
     e2e = _metrics_of(bench["end_to_end"], name, None)
     layer = _metrics_of(bench["per_layer"], name, {m["name"] for m in e2e})
-    return Cell(name, config, traffic, int(entry["chips"]), e2e, layer, root)
+    return Cell(name, config, drv, traffic, int(entry["chips"]), e2e, layer, root)
 
 
 def _only(d: dict, keys, what: str) -> None:
@@ -143,17 +163,38 @@ def load_module(path: Path, name: str):
     return mod
 
 
+def _part(root: Path, folder: str, name: str) -> Path:
+    """The file of part ``name`` in ``benchmark/<folder>/``."""
+    if not isinstance(name, str) or not NAME.fullmatch(name):
+        raise CellError(f"not a name of a {folder} file: {name!r}")
+    path = Path(root) / "benchmark" / folder / f"{name}.py"
+    if not path.is_file():
+        raise CellError(f"no {folder} file {path}")
+    return path
+
+
+def _load_part(root: Path, folder: str, name: str):
+    return load_module(_part(root, folder, name),
+                       f"_{folder}_{name.replace('.', '_').replace('-', '_')}")
+
+
 def reader(root: Path, metric: str):
     """The ``read(ctx)`` of metric ``metric``."""
-    mod = load_module(Path(root) / "benchmark" / "metrics" / f"{metric}.py",
-                      f"_metric_{metric.replace('.', '_').replace('-', '_')}")
-    return mod.read
+    return _load_part(root, "metrics", metric).read
 
 
 def generator(root: Path, traffic: dict):
-    name = traffic["generator"]
-    return load_module(Path(root) / "benchmark" / "traffic" / f"{name}.py",
-                       f"_traffic_{name}")
+    return _load_part(root, "traffic", traffic["generator"])
+
+
+def driver(root: Path, name: str):
+    """The driver module ``name`` (``drivers/alc3.py`` says what it gives)."""
+    return _load_part(root, "drivers", name)
+
+
+def reference(root: Path, config: dict):
+    """The plain reference module the configuration names."""
+    return _load_part(root, "reference", config["reference"])
 
 
 # ── the device ──────────────────────────────────────────────────
@@ -193,10 +234,11 @@ def _storage_bytes(tensors, seen: set) -> int:
 
 
 class Keeper:
-    """Keeps one roundtrip's outputs for each slot of the loop (each pool
-    chunk in the chunk loop, the one batch in the batch loop), drawn
-    uniformly from every roundtrip of that slot in the window: a
-    reservoir of one, whose draws come from the seed.  The n-th
+    """Keeps one roundtrip's units to judge (the driver's ``samples``) for
+    each slot of the loop (each pool chunk in the chunk loop, the one
+    batch in the batch loop), drawn uniformly from every roundtrip of
+    that slot in the window: a reservoir of one, whose draws come from
+    the seed.  The n-th
     roundtrip of a slot replaces the kept one with chance 1/n, so the
     draws reach the window's end and every pool chunk is judged.
 
@@ -209,13 +251,13 @@ class Keeper:
         self.rng = random.Random(int(seed))
         self.slots = slots
         self.offered = [0] * slots
-        self.entries: list = [None] * slots   # (roundtrip, triples, bytes)
+        self.entries: list = [None] * slots   # (roundtrip, samples, bytes)
         self.bytes = 0
         self.peaks: list[int] = []
 
-    def offer(self, i: int, inputs, chunks, decoded) -> None:
-        """Offer roundtrip ``i``'s (input, chunk, frames) triples
-        (``decoded``: the frames of each chunk)."""
+    def offer(self, drv, i: int, inputs, coded, out) -> None:
+        """Offer roundtrip ``i``: its inputs and what the driver ``drv``'s
+        encode and decode returned."""
         s = i % self.slots
         self.offered[s] += 1
         if self.rng.random() * self.offered[s] >= 1.0:
@@ -223,16 +265,17 @@ class Keeper:
         peak = self.dev.peak()
         if peak is not None:
             self.peaks.append(peak - self.bytes)
-        tensors = list(decoded) + [t for c in chunks for t in (c.streams, c.counts, c.hists)]
+        samples = drv.samples(inputs, coded, out)
+        tensors = [d for _, _, d in samples] + [t for _, c, _ in samples for t in drv.held(c)]
         n = _storage_bytes(tensors, set())
         old = self.entries[s]
         self.bytes += n - (old[2] if old is not None else 0)
-        self.entries[s] = (i, list(zip(inputs, chunks, decoded)), n)
+        self.entries[s] = (i, samples, n)
         self.dev.reset_peak()
 
     @property
     def kept(self) -> list:
-        """The kept (input, chunk, frames) triples, slot by slot."""
+        """The kept (input, coded, decoded) samples, slot by slot."""
         return [t for e in self.entries if e is not None for t in e[1]]
 
     @property
@@ -249,66 +292,35 @@ class Keeper:
 # ── the run ─────────────────────────────────────────────────────
 
 
-def _summary(chunk) -> SimpleNamespace:
-    """What :func:`_work` needs of a coded chunk, read without a device
-    synchronization (its counts stay a tensor)."""
-    return SimpleNamespace(width=chunk.width, height=chunk.height, frames=chunk.frames,
-                           s_seg=chunk.s_seg, n_streams=int(chunk.streams.shape[0]),
-                           counts=chunk.counts, kcaps=tuple(chunk.kcaps),
-                           sparse=chunk.sparse, deep=chunk.deep)
-
-
-def _work(c: SimpleNamespace):
-    """A chunk summary's :class:`roofline.ChunkWork` (reads its counts)."""
-    import torch
-
-    from reference.alc3_plain import padded_dims, segment_geometry, sparse_pp
-    from roofline import ChunkWork
-
-    pw, ph, pf = padded_dims(c.width, c.height, c.frames)
-    p = pw * ph * pf
-    pp = sparse_pp(p)
-    dense = segment_geometry(pp, c.s_seg)[1]
-    lifted = sum(1 for k in c.kcaps[:3] if k > 0) if c.sparse and not c.deep else 3
-    return ChunkWork(p=p, pp=pp, s_seg=c.s_seg, n_streams=c.n_streams,
-                     words=int(c.counts.to(torch.int64).sum().item()),
-                     channels=lifted or 1,
-                     sparse_planes=sum(1 for k in c.kcaps if 0 < k < dense))
-
-
 class Loop:
     """One client's closed loop over the pool: a roundtrip is one chunk's
-    (or, in the batch loop, the whole pool's) encode and decode."""
+    (or, in the batch loop, the whole pool's) encode and decode, by the
+    driver ``drv``."""
 
-    def __init__(self, cell: Cell, codec, pool, dev: Device, batch=None):
-        self.codec = codec
+    def __init__(self, drv, pool, dev: Device, batch=None):
+        self.drv = drv
         self.pool = pool
         self.dev = dev
         self.batch = batch
-        self.exact = bool(cell.config["decode"]["exact"])
 
     def inputs(self, i: int):
         return list(self.pool) if self.batch is not None else [self.pool[i % len(self.pool)]]
 
     def encode(self, i: int):
         if self.batch is not None:
-            return self.codec.encode_batch(self.batch)
-        return [self.codec.encode(self.pool[i % len(self.pool)])]
+            return self.drv.encode_batch(self.batch)
+        return self.drv.encode(self.pool[i % len(self.pool)])
 
-    def decode(self, chunks):
+    def decode(self, coded):
         if self.batch is not None:
-            return self.codec.decode_batch(chunks, exact=self.exact)
-        return self.codec.decode(chunks[0], exact=self.exact)
-
-    def frames(self, out) -> list:
-        """The decoded frames of each chunk of a roundtrip."""
-        return list(out.unbind(0)) if self.batch is not None else [out]
+            return self.drv.decode_batch(coded)
+        return self.drv.decode(coded)
 
     def roundtrip(self, i: int):
-        chunks = self.encode(i)
-        out = self.decode(chunks)
+        coded = self.encode(i)
+        out = self.decode(coded)
         self.dev.sync()
-        return chunks, out
+        return coded, out
 
 
 def window(loop: Loop, seconds: float, keeper: Keeper, *, split: bool):
@@ -320,21 +332,22 @@ def window(loop: Loop, seconds: float, keeper: Keeper, *, split: bool):
     while True:
         ta = now()
         if split:
-            chunks = loop.encode(i)
+            coded = loop.encode(i)
             loop.dev.sync()
             tm = now()
-            out = loop.decode(chunks)
+            out = loop.decode(coded)
             loop.dev.sync()
             tb = now()
             enc.append(tm - ta)
             dec.append(tb - tm)
         else:
-            chunks, out = loop.roundtrip(i)
+            coded, out = loop.roundtrip(i)
             tb = now()
-        lat.extend([tb - ta] * len(chunks))
+        inputs = loop.inputs(i)
+        lat.extend([tb - ta] * len(inputs))
         ends.append(tb - t0)
-        keeper.offer(i, loop.inputs(i), chunks, loop.frames(out))
-        del chunks, out
+        keeper.offer(loop.drv, i, inputs, coded, out)
+        del coded, out
         i += 1
         if tb - t0 >= seconds:
             break
@@ -365,14 +378,14 @@ def profiled(loop: Loop, roundtrips: int):
             with record_function("pool"):
                 inputs = loop.inputs(i)
             with record_function("encode"):
-                chunks = loop.encode(i)
+                coded = loop.encode(i)
             with record_function("decode"):
-                out = loop.decode(chunks)
+                out = loop.decode(coded)
             with record_function("sync"):
                 loop.dev.sync()
             chunks_done += len(inputs)
-            work += [_summary(c) for c in chunks]
-            del chunks, out
+            work += loop.drv.summaries(coded)
+            del coded, out
         return chunks_done, work
 
     return run
@@ -385,14 +398,13 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device: str,
     window has closed (the card's description, kept out of the set-up)."""
     import torch
 
-    from alice_codec_tpu_torch import Alc3Codec
     from alice_codec_tpu_torch.ops.kernels import launch_counts, reset_launches
 
     stamps = [("imports", time.perf_counter())]
     dev = Device(device)
     cfg = cell.config
     geo = cfg["chunk"]
-    codec = Alc3Codec(**cfg["codec"], device=device)
+    drv = cell.driver.Driver(cfg, device)
     gen = generator(cell.root, cell.traffic)
     pool = gen.make_pool(cell.traffic["content"], int(cell.traffic["pool"]), seed,
                          geo["frames"], geo["height"], geo["width"], device)
@@ -400,7 +412,7 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device: str,
     if cell.traffic["loop"] == "batch":
         batch = torch.stack(pool)
         pool = list(batch.unbind(0))
-    loop = Loop(cell, codec, pool, dev, batch)
+    loop = Loop(drv, pool, dev, batch)
     dev.sync()
     stamps.append(("card context and pool", time.perf_counter()))
     # warm-up: every pool chunk once, as a stream would bring them
@@ -440,19 +452,19 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device: str,
                                      .parent / "csrc")
         run = profiled(loop, int(cell.traffic["profile_roundtrips"]))
         prof = devtrace.profile_roundtrips(run, csrc=csrc)
-        prof.chunk_work = [_work(c) for c in prof.chunk_work]
+        prof.chunk_work = [drv.work(c) for c in prof.chunk_work]
         log(f"profile of {prof.chunks} chunks: complete={prof.complete}, "
             f"{prof.runtime_launches} runtime kernel launches, the port's kernel "
             f"records {json.dumps(prof.ours)}, its launches "
             f"{json.dumps({k: v for k, v in prof.launches.items() if v})}")
         if not prof.complete:
             log(f"profile incomplete after retries: {prof.missing[:8]}")
-    del loop, codec
+    del loop, drv
     if dev.cuda:
         torch.cuda.empty_cache()
     t_judge = time.perf_counter()
-    numbers, failed = checks.judge(keeper.kept, cfg)
-    log(f"judged {len(keeper.kept)} sampled chunks (roundtrips {keeper.roundtrips} of "
+    numbers, failed = checks.judge(keeper.kept, cfg, reference(cell.root, cfg))
+    log(f"judged {len(keeper.kept)} sampled units (roundtrips {keeper.roundtrips} of "
         f"{win['roundtrips']}) in {time.perf_counter() - t_judge:.3f} s")
     ctx = {"trace": trace, "setup_s": setup_s, "peak_bytes": peak, "profile": prof,
            "batch": len(pool) if batch is not None else 1, **win}
@@ -467,7 +479,8 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device: str,
         result["breakdown"] = {
             "device_ops": [[n[:160], s] for n, s in prof.ops[:10]],
             "idle_gaps": [[n, s] for n, s in prof.gaps[:10]]}
-    result["checks"] = {n: {"value": v, "limit": checks.LIMITS[n]} for n, v in numbers.items()}
+    result["checks"] = {n: {"value": v, "limit": checks.LIMITS.get(n)}
+                        for n, v in numbers.items()}
     found = forbidden_modules(sys.modules)
     if found:
         raise ForbiddenModules(found)

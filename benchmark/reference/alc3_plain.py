@@ -10,7 +10,12 @@ that the benchmark imports nothing of the program under test:
   expand), which recovers the symbols the program actually coded;
 * the inverse (un-zigzag, dequantize, inverse lifting, crop, int16
   truncation, inverse YCoCg-R) that gives the frames a decoder must
-  return for those symbols.
+  return for those symbols;
+* the judge of one sample (:func:`judge_one`, which ``checks.py`` calls:
+  the header fields, the wire's symbols and the decoded frames) and the
+  configuration's control (:func:`control_samples`, which ``control.py``
+  calls).  It reads the coded chunk's attributes and imports nothing of
+  the program.
 
 Wire constants and rules are ALC3 v7's (NG = 128 lanes, PROB_BITS = 11,
 WORD_L = 2^16, HIST_STRIDE = 16, TILE_ROWS = 8, 512-row blocks padded to
@@ -448,3 +453,86 @@ def read_wire(streams, counts, hists, *, spec: Spec, s_seg: int,
             out[c] = expand_plane(flat[i * mb: i * mb + pp // 8], values, p)
         voff += kcaps[c]
     return out
+
+
+# ── judging ─────────────────────────────────────────────────────
+
+WAVELETS = {"cdf53": 0, "cdf97": 1, "haar": 2}
+
+
+def spec_of(config: dict, **change) -> Spec:
+    """The reference's view of a configuration (``change``: e.g. the
+    control's lower ``store``)."""
+    kw = dict(config["chunk"])
+    kw.update(quality=config["codec"]["quality"], wavelet=config["codec"]["wavelet"],
+              exact=config["decode"]["exact"])
+    kw.update(change)
+    return Spec(**kw)
+
+
+def header_mismatch(chunk, config: dict, spec: Spec) -> int:
+    """Header fields of a coded chunk that differ from the configuration."""
+    w, h, t = spec.dims
+    want = (w, h, t, WAVELETS[spec.wavelet], spec.step, spec.deep,
+            bool(config["codec"].get("sparse", False)), 1)
+    have = (chunk.width, chunk.height, chunk.frames, int(chunk.wavelet_type),
+            chunk.quant_step, bool(chunk.deep), bool(chunk.sparse), chunk.levels)
+    return sum(a != b for a, b in zip(want, have))
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest difference of two uint8 volumes (256 where their shapes
+    differ)."""
+    if a.shape != b.shape:
+        return 256
+    return int((a.to(torch.int16) - b.to(torch.int16)).abs().max().item())
+
+
+def judge_one(rgb, chunk, decoded, config: dict) -> dict:
+    """The numbers of one sample (``checks.py``): ``rgb`` the input,
+    ``chunk`` the coded chunk, whose attributes alone are read (or a
+    control's symbols), ``decoded`` the frames."""
+    spec = spec_of(config)
+    ref_sym = forward_symbols(rgb, spec)
+    if isinstance(chunk, torch.Tensor):    # a control's symbols
+        wire_sym, head = chunk, 0
+    else:
+        head = header_mismatch(chunk, config, spec)
+        wire_sym = read_wire(
+            chunk.streams, chunk.counts, chunk.hists, spec=spec,
+            s_seg=chunk.s_seg, sparse=chunk.sparse, kcaps=tuple(chunk.kcaps))
+    out = {"header_mismatch": head,
+           "symbol_mismatch": (int((wire_sym != ref_sym).sum().item())
+                               if wire_sym.shape == ref_sym.shape else ref_sym.numel())}
+    del wire_sym
+    ref_rgb = inverse_rgb(ref_sym, spec)
+    del ref_sym
+    out["rgb_max_err"] = max_err(decoded, ref_rgb)
+    del ref_rgb
+    if config.get("lossless"):
+        out["input_max_err"] = max_err(decoded, rgb)
+    return out
+
+
+def control_samples(pool, config: dict, program):
+    """(input, symbols or coded chunk, decoded) triples of the
+    configuration's control, one a pool chunk (``control.py``):
+
+    * lossy (integer lifting with an int16 store between the spatial and
+      the temporal pass): this reference with that store lowered to int8,
+      the next precision down;
+    * lossless: the program itself (``program(config)``, the
+      configuration's driver) with its own non-exact inverse
+      (``exact=False``, the compat replay), which breaks the "lossless"
+      guarantee (its int32 lifting held at int16 changes nothing on 8-bit
+      video, so a lower precision is no control)."""
+    if config.get("lossless"):
+        codec = program(dict(config, decode=dict(config["decode"], exact=False)))
+        for x in pool:
+            c = codec.encode(x)
+            yield x, c, codec.decode(c)
+    else:
+        low = spec_of(config, store=torch.int8)
+        for x in pool:
+            sym = forward_symbols(x, low)
+            yield x, sym, inverse_rgb(sym, low)

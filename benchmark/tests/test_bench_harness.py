@@ -14,7 +14,7 @@ import pytest
 import devtrace
 import harness
 import roofline
-from conftest import BENCH, ROOT, make_tiny_root
+from conftest import BENCH, ROOT, TINY_CHUNK, make_tiny_root
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -78,35 +78,119 @@ def test_every_cell_finds_its_parts(cell):
     for m in c.end_to_end + c.per_layer:
         assert callable(harness.reader(ROOT, m["name"]))
     assert (BENCH / "reference" / f"{c.config['reference']}.py").is_file()
+    assert (BENCH / "drivers" / f"{c.config['driver']}.py").is_file()
+    assert c.driver.DECODE_KEYS >= set(c.config["decode"])
 
 
-def test_a_new_cell_is_files_and_entries_only(tmp_path):
-    """A configuration, a traffic mix and a metric added as new files plus
-    new entries, with no harness file edited, run and report."""
-    root = make_tiny_root(tmp_path)
-    before = {p.relative_to(root): p.read_bytes() for p in (root / "benchmark").rglob("*.py")}
+ALC2_PROBE_DRIVER = '''"""A probe's driver: the port's ALC2 batch wire."""
+
+DECODE_KEYS = frozenset({"device_entropy", "exact"})
+
+
+class Driver:
+    def __init__(self, config, device):
+        from alice_codec_tpu_torch.parallel import BatchFrameDecoder, BatchFrameEncoder
+
+        dec = dict(config["decode"])
+        self.exact = dec.pop("exact")
+        self.enc = BatchFrameEncoder(**config["codec"], device=device)
+        self.dec = BatchFrameDecoder(**dec, device=device)
+
+    def encode_batch(self, batch):
+        return self.enc.encode(batch)
+
+    def decode_batch(self, stream):
+        return self.dec.decode(stream, exact=self.exact, as_numpy=False)
+
+    @staticmethod
+    def samples(inputs, stream, out):
+        return [(inputs, stream, out)]
+
+    @staticmethod
+    def held(stream):
+        return ()
+'''
+
+ALC2_PROBE_REFERENCE = '''"""A probe's judge of an ALC2 batch: ALC3's plain transform (ALC2 codes
+the same symbols in another order) against the stream's header fields,
+its stored histograms (the symbols' counts; the payload is not read) and
+the decoded frames."""
+
+import torch
+
+from reference import alc3_plain as a3
+
+
+def judge_one(inputs, stream, decoded, config):
+    spec = a3.spec_of(config)
+    head = sum(a != b for a, b in zip(
+        (stream.width, stream.height, stream.frames, stream.n_chunks),
+        (*spec.dims, len(inputs))))
+    miss = err = 0
+    for i, x in enumerate(inputs):
+        sym = a3.forward_symbols(x, spec)
+        for ch, hdr in enumerate(stream.chunk_headers[i]):
+            head += (hdr.quant_step != spec.step) + (hdr.num_symbols != spec.p)
+            want = torch.bincount(sym[ch].to(torch.int64), minlength=256)
+            miss += int((want - torch.as_tensor(hdr.histogram.astype("int64"))).abs().sum())
+        err = max(err, a3.max_err(decoded[i], a3.inverse_rgb(sym, spec)))
+    return {"header_mismatch": head, "symbol_mismatch": miss, "rgb_max_err": err}
+'''
+
+
+def _alc3_probe(root):
+    """Another ALC3 configuration: a config file, a two-chunk mix and a
+    metric of its own."""
     cfg = json.loads((root / "benchmark/configs/alc3_cdf53_q90_sparse_1080p.json").read_text())
     cfg.update(name="alc3_cdf97_q50_probe", codec=dict(cfg["codec"], quality=50,
                                                       wavelet="cdf97"))
-    (root / "benchmark/configs/alc3_cdf97_q50_probe.json").write_text(json.dumps(cfg))
     mix = json.loads((root / "benchmark/traffic/natural4.chunk.json").read_text())
     (root / "benchmark/traffic/natural2.chunk.json").write_text(json.dumps(dict(mix, pool=2)))
+    return cfg, "natural2.chunk"
+
+
+def _alc2_probe(root):
+    """Another codec: the ALC2 batch (``BatchFrameEncoder`` /
+    ``BatchFrameDecoder``, N-lane byte-rANS on the device's plain path)
+    through a driver and a reference of its own."""
+    (root / "benchmark/drivers/alc2_probe.py").write_text(ALC2_PROBE_DRIVER)
+    (root / "benchmark/reference/alc2_probe_plain.py").write_text(ALC2_PROBE_REFERENCE)
+    cfg = {"name": "alc2_probe", "chunk": dict(TINY_CHUNK),
+           "codec": {"quality": 90, "wavelet": "cdf53", "n_lanes": 4096,
+                     "device_entropy": True},
+           "decode": {"device_entropy": True, "exact": False},
+           "driver": "alc2_probe", "reference": "alc2_probe_plain", "lossless": False}
+    return cfg, "natural4.batch4"
+
+
+@pytest.mark.parametrize("probe", [_alc3_probe, _alc2_probe], ids=["alc3", "alc2"])
+def test_a_new_cell_is_files_and_entries_only(tmp_path, probe):
+    """A configuration, a traffic mix, a metric, and for another codec a
+    driver and a reference, added as new files plus new entries, with no
+    harness file edited, run and report."""
+    root = make_tiny_root(tmp_path)
+    before = {p.relative_to(root): p.read_bytes() for p in (root / "benchmark").rglob("*.py")}
+    cfg, traffic = probe(root)
+    (root / f"benchmark/configs/{cfg['name']}.json").write_text(json.dumps(cfg))
     (root / "benchmark/metrics/roundtrips_probe.py").write_text(
         "def read(ctx):\n    return float(ctx['roundtrips'])\n")
     bench = json.loads((root / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": "alc3_cdf97_q50_probe", "source": "a probe",
-                             "file": "benchmark/configs/alc3_cdf97_q50_probe.json",
+    bench["configs"].append({"name": cfg["name"], "source": "a probe",
+                             "file": f"benchmark/configs/{cfg['name']}.json",
                              "reduced": [], "why": "a probe"})
-    bench["workloads"].append({"name": "probe.chunk", "config": "alc3_cdf97_q50_probe",
-                               "traffic": "natural2.chunk", "chips": 1, "why": "a probe"})
+    bench["workloads"].append({"name": "probe.cell", "config": cfg["name"],
+                               "traffic": traffic, "chips": 1, "why": "a probe"})
     bench["end_to_end"].append({"name": "roundtrips_probe", "unit": "count",
                                 "better": "higher", "bound": 0.05, "source": "host_clock",
-                                "workloads": ["probe.chunk"]})
+                                "workloads": ["probe.cell"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    cell = harness.load_cell(root, "probe.chunk")
+    cell = harness.load_cell(root, "probe.cell")
     res = harness.run_cell(cell, seed=3, seconds=0.2, trace=False, device="cpu",
                            t_start=time.perf_counter(), log=lambda s: None)
     assert res["correct"] and res["metrics"]["roundtrips_probe"]["value"] >= 1
+    assert all(c == {"value": 0, "limit": 0} for c in res["checks"].values())
+    per = int(cell.traffic["pool"]) if cell.traffic["loop"] == "batch" else 1
+    assert res["attempted"] >= per and res["attempted"] % per == 0   # chunks, not streams
     assert "roundtrips_probe" not in harness.load_cell(root, "ns1080.chunk").end_to_end
     after = {p.relative_to(root): p.read_bytes() for p in (root / "benchmark").rglob("*.py")
              if p.relative_to(root) in before}
@@ -158,23 +242,75 @@ def test_unknown_content_and_codec_settings_fail_the_run(tiny_root):
 
 
 def test_the_reference_is_found_by_the_configs_name(tiny_root):
-    import checks
-
     cell = harness.load_cell(tiny_root, "ns1080.chunk")
-    assert checks.reference_of(cell.config).__name__ == "reference.alc3_plain"
-    with pytest.raises(ModuleNotFoundError):
-        checks.reference_of(dict(cell.config, reference="alc2_plain"))
+    ref = harness.reference(tiny_root, cell.config)
+    assert ref.__file__ == str(tiny_root / "benchmark/reference/alc3_plain.py")
+    with pytest.raises(harness.CellError):
+        harness.reference(tiny_root, dict(cell.config, reference="alc2_plain"))
+    path = tiny_root / "benchmark/configs/alc3_cdf53_q90_sparse_1080p.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()), reference="alc2_plain")))
+    with pytest.raises(harness.CellError, match="alc2_plain"):
+        harness.load_cell(tiny_root, "ns1080.chunk")
 
 
-class _Chunk:
-    """A stand-in coded chunk (no tensors to count)."""
+@pytest.mark.parametrize("driver", [None, "alc2_batch", "../drivers/alc3"])
+def test_a_config_names_a_driver_that_exists(tiny_root, driver):
+    """No driver, or one that is not a file of ``drivers/``, is refused
+    before a run: there is no default codec."""
+    path = tiny_root / "benchmark/configs/alc3_cdf53_q90_sparse_1080p.json"
+    cfg = json.loads(path.read_text())
+    cfg.pop("driver")
+    if driver is not None:
+        cfg["driver"] = driver
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(harness.CellError, match="driver" if driver is None else "drivers"):
+        harness.load_cell(tiny_root, "ns1080.chunk")
+    assert harness.load_cell(tiny_root, "lossless1080.chunk").driver.Driver
 
-    streams = counts = hists = None
+
+@pytest.mark.parametrize("change,number", [("extra", "psnr_floor_db"),
+                                           ("missing", "rgb_max_err")])
+def test_a_number_the_limits_do_not_hold_fails_the_run(tiny_root, change, number):
+    """A reference that reports a number ``checks.LIMITS`` has no limit
+    for fails the run (it cannot bring its own limit); one that leaves
+    out a number the configuration needs stops it."""
+    body = (f"dict(one, {number}=0)" if change == "extra"
+            else f"{{k: v for k, v in one.items() if k != {number!r}}}")
+    (tiny_root / "benchmark/reference/alc3_probe.py").write_text(
+        "from reference import alc3_plain\n\n\n"
+        "def judge_one(rgb, chunk, decoded, config):\n"
+        "    one = alc3_plain.judge_one(rgb, chunk, decoded, config)\n"
+        f"    return {body}\n")
+    path = tiny_root / "benchmark/configs/alc3_cdf53_q90_sparse_1080p.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()), reference="alc3_probe")))
+    cell = harness.load_cell(tiny_root, "ns1080.chunk")
+    run = dict(seed=6, seconds=0.2, trace=False, device="cpu", t_start=time.perf_counter(),
+               log=lambda s: None)
+    if change == "missing":
+        with pytest.raises(ValueError, match=number):
+            harness.run_cell(cell, **run)
+        return
+    res = harness.run_cell(cell, **run)
+    assert res["correct"] is False and res["failed"] >= 1
+    assert res["checks"][number] == {"value": 0, "limit": None}
+    assert all(c == {"value": 0, "limit": 0} for n, c in res["checks"].items() if n != number)
+
+
+class _Driver:
+    """A stand-in driver whose coded chunks hold no tensors to count."""
+
+    @staticmethod
+    def samples(inputs, coded, out):
+        return list(zip(inputs, coded, out))
+
+    @staticmethod
+    def held(chunk):
+        return ()
 
 
 def _offer_all(keeper, n):
     for i in range(n):
-        keeper.offer(i, [f"in{i}"], [_Chunk()], [f"out{i}"])
+        keeper.offer(_Driver, i, [f"in{i}"], [object()], [f"out{i}"])
 
 
 def test_the_keeper_judges_every_pool_chunk_over_the_whole_window(monkeypatch):
@@ -218,6 +354,8 @@ def test_the_keeper_takes_its_kept_bytes_off_the_peak():
 
     import torch
 
+    from drivers.alc3 import Driver
+
     dev = Dev()
     k = harness.Keeper(dev, 1, 1)
     chunk = type("C", (), {"streams": torch.zeros(4, dtype=torch.int32),
@@ -229,7 +367,7 @@ def test_the_keeper_takes_its_kept_bytes_off_the_peak():
         dev.alloc(124)                       # its outputs: 100 + 16 + 4 + 4 bytes
         dev.now -= 1000
         old = k.entries[0]
-        k.offer(i, ["x"], [chunk()], [out])
+        k.offer(Driver, i, ["x"], chunk(), out)
         if k.entries[0][0] != i or old is not None:
             dev.now -= 124                   # not kept, or the one it replaced: freed
     assert k.bytes == 124
@@ -303,13 +441,13 @@ def test_roofline_bytes_from_geometry_and_counted_words():
     p = 64 * 1080 * 1920
     w = roofline.ChunkWork(p=p, pp=134217728, s_seg=2048, n_streams=1728,
                            words=29_307_668, channels=3, sparse_planes=0)
-    assert roofline.chunk_bytes("forward_quant", w) == 3 * 3 * p
-    assert roofline.chunk_bytes("inverse_3d", w) == 8 * 3 * p
+    assert w.bytes("forward_quant") == 3 * 3 * p
+    assert w.bytes("inverse_3d") == 8 * 3 * p
     seg = 1728 * 2048 * 128
-    assert roofline.chunk_bytes("encode_words", w) == seg + 4 * 29_307_668 + 4 * 1728
-    assert roofline.chunk_bytes("decode_words", w) == seg + 4 * 29_307_668 + 4 * 1728
-    assert roofline.chunk_bytes("compact", w) == 0
-    assert roofline.chunk_bytes("encode_nway", w) is None
+    assert w.bytes("encode_words") == seg + 4 * 29_307_668 + 4 * 1728
+    assert w.bytes("decode_words") == seg + 4 * 29_307_668 + 4 * 1728
+    assert w.bytes("compact") == 0
+    assert w.bytes("encode_nway") is None
     # K1 + K2 + K3 + K4 of one north-star chunk: ≈ 1.2 ms at 3.35 TB/s,
     # far below the padded 1.8 GB stream buffer's count
     least = roofline.least_seconds({"forward_quant": 1, "encode_words": 1,
@@ -322,8 +460,21 @@ def test_roofline_bytes_from_geometry_and_counted_words():
     assert roofline.least_seconds({"decode_nway": 1}, [w]) is None
     sp = roofline.ChunkWork(p=1000, pp=2048, s_seg=16, n_streams=4, words=10,
                             channels=3, sparse_planes=2)
-    assert roofline.chunk_bytes("expand", sp) == 2 * (256 + 1000)
-    assert roofline.chunk_bytes("compact", sp) == 2 * (2048 + 8 + 256)
+    assert sp.bytes("expand") == 2 * (256 + 1000)
+    assert sp.bytes("compact") == 2 * (2048 + 8 + 256)
+    # another driver's work type: least_seconds asks each item, and a
+    # launched wrapper that no item counts gives no share
+
+    class Lanes:
+        per_chunk = frozenset()
+
+        def bytes(self, wrapper):
+            return 1000 if wrapper == "encode_pack_nway" else None
+
+    assert roofline.least_seconds({"encode_pack_nway": 1}, [Lanes(), Lanes()]) == \
+        pytest.approx(2000 / 3.35e12)
+    assert roofline.least_seconds({"encode_pack_nway": 1, "forward_quant": 4},
+                                  [Lanes()]) is None
 
 
 def test_csrc_kernel_names_and_trace_reading():
@@ -411,8 +562,6 @@ def test_a_run_that_loaded_jax_gives_no_result(tiny_root, monkeypatch, name):
 def test_profiled_roundtrips_summarize_their_chunks(tiny_root):
     """The traced run's roundtrips (run here without the profiler) and the
     work their chunks report to the roofline."""
-    from alice_codec_tpu_torch import Alc3Codec
-
     cell = harness.load_cell(tiny_root, "ns1080.batch4")
     geo = cell.config["chunk"]
     pool = harness.generator(tiny_root, cell.traffic).make_pool(
@@ -420,11 +569,11 @@ def test_profiled_roundtrips_summarize_their_chunks(tiny_root):
     import torch
 
     batch = torch.stack(pool)
-    loop = harness.Loop(cell, Alc3Codec(**cell.config["codec"], device="cpu"),
-                        list(batch.unbind(0)), harness.Device("cpu"), batch)
+    drv = cell.driver.Driver(cell.config, "cpu")
+    loop = harness.Loop(drv, list(batch.unbind(0)), harness.Device("cpu"), batch)
     chunks, work = harness.profiled(loop, 2)()
     assert chunks == 8 and len(work) == 8
-    w = harness._work(work[0])
+    w = drv.work(work[0])
     p = geo["frames"] * geo["height"] * geo["width"]
     assert (w.p, w.channels, w.s_seg) == (p, 3, 16)
     assert 0 < w.words and w.n_streams > 0 and w.sparse_planes == 3

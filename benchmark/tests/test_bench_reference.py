@@ -24,7 +24,7 @@ def _config(quality, wavelet, sparse, exact):
     return {"chunk": dict(TINY_CHUNK),
             "codec": {"quality": quality, "wavelet": wavelet, "sparse": sparse, "s_seg": 16},
             "decode": {"exact": exact}, "lossless": quality >= 100 and exact,
-            "reference": "alc3_plain"}
+            "driver": "alc3", "reference": "alc3_plain"}
 
 
 def _pool(content, seed):
@@ -34,13 +34,13 @@ def _pool(content, seed):
 
 
 def _roundtrips(cfg, pool):
-    from alice_codec_tpu_torch import Alc3Codec
+    from drivers.alc3 import Driver
 
-    codec = Alc3Codec(**cfg["codec"], device="cpu")
+    drv = Driver(cfg, "cpu")
     out = []
     for x in pool:
-        c = codec.encode(x)
-        out.append((x, c, codec.decode(c, exact=cfg["decode"]["exact"])))
+        c = drv.encode(x)
+        out += drv.samples([x], c, drv.decode(c))
     return out
 
 
@@ -57,9 +57,9 @@ CASES = [
 @pytest.mark.parametrize("name,cfg,content", CASES, ids=[c[0] for c in CASES])
 def test_reference_agrees_with_the_port(name, cfg, content):
     samples = _roundtrips(cfg, _pool(content, 11))
-    numbers, failed = checks.judge(samples, cfg)
+    numbers, failed = checks.judge(samples, cfg, alc3_plain)
     assert failed == 0 and checks.passed(numbers), numbers
-    spec = checks.spec_of(cfg)
+    spec = alc3_plain.spec_of(cfg)
     dense = alc3_plain.segment_geometry(alc3_plain.sparse_pp(spec.p), 16)[1]
     kcaps = [k for _, c, _ in samples for k in c.kcaps]
     if name == "q50_static_sparse":
@@ -78,7 +78,8 @@ def test_control_is_not_correct(tiny_root, cell, seed):
     import control
 
     c = harness.load_cell(tiny_root, cell)
-    numbers, failed = checks.judge(control.control_samples(c, seed, "cpu"), c.config)
+    numbers, failed = checks.judge(control.control_samples(c, seed, "cpu"), c.config,
+                                   harness.reference(tiny_root, c.config))
     assert failed == int(c.traffic["pool"]) and not checks.passed(numbers)
     assert numbers["rgb_max_err"] > 0
     if c.config.get("lossless"):
