@@ -42,11 +42,18 @@ counting launches in ``launches``.  :func:`slab_bytes`,
 :func:`lane_offsets` and :func:`decode_table` are the glue of the CUDA
 routes (the CPU tests hold them to the plain versions), and
 :func:`rcp_update` models the encode kernel's reciprocal division.
+
+The ALC2 routes' wrappers, :func:`encode_pack_nway` and
+:func:`decode_nway`, also keep in ``events`` the CUDA event pairs
+recorded around each call's kernel launches on the current stream (the
+newest :data:`EVENTS_KEPT` calls; none on the CPU path), and
+:func:`event_ms` reads them once the card has passed them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import deque
 
 import numpy as np
 import torch
@@ -56,7 +63,7 @@ from ... import _build
 __all__ = ["encode_nway", "encode_pack_nway", "decode_nway",
            "encode_nway_plain", "encode_pack_nway_plain", "decode_nway_plain",
            "pack_device", "pack_streams", "slab_bytes", "lane_offsets",
-           "decode_table", "rcp_update"]
+           "decode_table", "rcp_update", "event_ms", "EVENTS_KEPT"]
 
 PROB_BITS = 12
 PROB_SCALE = 1 << PROB_BITS
@@ -64,6 +71,8 @@ RANS32_L = 1 << 23
 _X_MAX_UNIT = (RANS32_L >> PROB_BITS) << 8
 _U32 = 0xFFFFFFFF
 _MASK = PROB_SCALE - 1
+#: calls whose event pairs a wrapper's ``events`` keeps (the newest)
+EVENTS_KEPT = 256
 
 
 def _streams(symbols: torch.Tensor, n_lanes: int) -> tuple[int, int]:
@@ -283,8 +292,33 @@ def _i32(t: torch.Tensor, dev) -> torch.Tensor:
     return t.to(device=dev, dtype=torch.int32).contiguous()
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _launch(dev, what: str, pairs, fn, *args) -> None:
+    """``fn(*args, stream)``: one checked launch on ``dev``'s current
+    stream; with a list ``pairs``, between two timing events recorded on
+    that stream, appended to it as a pair (no synchronization)."""
+    stream = torch.cuda.current_stream(dev)
+    if pairs is None:
+        _build.check(fn(*args, stream.cuda_stream), what)
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    _build.check(fn(*args, stream.cuda_stream), what)
+    end.record(stream)
+    pairs.append((start, end))
+
+
+def event_ms(wrapper) -> list[float]:
+    """Milliseconds of each kept call of ``wrapper`` (:func:`encode_pack_nway`
+    or :func:`decode_nway`) whose events the card has passed: the sum of
+    its launches' event pairs, oldest call first.  Reads no call still in
+    flight, and waits for none."""
+    out = []
+    for pairs in list(wrapper.events):
+        if not all(end.query() for _, end in pairs):
+            continue
+        out.append(sum(start.elapsed_time(end) for start, end in pairs))
+    return out
 
 
 def _encode_cuda(symbols, freqs, cums, n_lanes):
@@ -297,17 +331,16 @@ def _encode_cuda(symbols, freqs, cums, n_lanes):
     bytes2 = torch.empty((s, steps, n_lanes, 2), dtype=torch.uint8, device=dev)
     counts = torch.empty((s, steps, n_lanes), dtype=torch.uint8, device=dev)
     states = torch.empty((s, n_lanes), dtype=torch.int64, device=dev)
-    _build.check(_lib().alc_encode_nway(
-        sym.data_ptr(), f.data_ptr(), c.data_ptr(), bytes2.data_ptr(),
-        counts.data_ptr(), states.data_ptr(), s, steps, n_lanes,
-        _stream(dev)), "encode_nway")
+    _launch(dev, "encode_nway", None, _lib().alc_encode_nway,
+            sym.data_ptr(), f.data_ptr(), c.data_ptr(), bytes2.data_ptr(),
+            counts.data_ptr(), states.data_ptr(), s, steps, n_lanes)
     encode_nway.launches += 1
     return bytes2, counts, states
 
 
-def _encode_slabs_cuda(symbols, freqs, cums, n_lanes):
+def _encode_slabs_cuda(symbols, freqs, cums, n_lanes, pairs=None):
     """The packed route's first kernel: every lane coded into its own slab
-    → ``(slabs, lane_lens, slab bytes)``."""
+    → ``(slabs, lane_lens, slab bytes)``; ``pairs`` as for :func:`_launch`."""
     s, steps = _streams(symbols, n_lanes)
     _check_tables(s, (freqs, 256), (cums, 256))
     _grid_ok(s, steps, n_lanes)
@@ -318,31 +351,32 @@ def _encode_slabs_cuda(symbols, freqs, cums, n_lanes):
     # 16 bytes past the last slab: compact_lanes reads up to 4 past it
     slabs = torch.empty(s * n_lanes * slab + 16, dtype=torch.uint8, device=dev)
     lens = torch.empty((s, n_lanes), dtype=torch.int32, device=dev)
-    _build.check(_lib().alc_encode_slabs(
-        sym.data_ptr(), f.data_ptr(), c.data_ptr(), slabs.data_ptr(),
-        lens.data_ptr(), s, steps, n_lanes, slab, _stream(dev)),
-        "encode_pack_nway (encode_slabs)")
+    _launch(dev, "encode_pack_nway (encode_slabs)", pairs, _lib().alc_encode_slabs,
+            sym.data_ptr(), f.data_ptr(), c.data_ptr(), slabs.data_ptr(),
+            lens.data_ptr(), s, steps, n_lanes, slab)
     return slabs, lens, slab
 
 
-def _compact_cuda(slabs, lens, slab):
+def _compact_cuda(slabs, lens, slab, pairs=None):
     """The packed route's second kernel: the lanes moved from their slabs
     into the payload, whose size is read back first (one sync) →
-    ``(payload, totals)``."""
+    ``(payload, totals)``; ``pairs`` as for :func:`_launch`."""
     dev = lens.device
     offs = lane_offsets(lens)
     totals = lens.sum(1, dtype=torch.int64)
     payload = torch.empty(int(totals.sum()), dtype=torch.uint8, device=dev)
-    _build.check(_lib().alc_compact_lanes(
-        slabs.data_ptr(), lens.data_ptr(), offs.data_ptr(), payload.data_ptr(),
-        lens.numel(), slab, _stream(dev)), "encode_pack_nway (compact_lanes)")
+    _launch(dev, "encode_pack_nway (compact_lanes)", pairs, _lib().alc_compact_lanes,
+            slabs.data_ptr(), lens.data_ptr(), offs.data_ptr(), payload.data_ptr(),
+            lens.numel(), slab)
     return payload, totals
 
 
 def _encode_pack_cuda(symbols, freqs, cums, n_lanes):
-    slabs, lens, slab = _encode_slabs_cuda(symbols, freqs, cums, n_lanes)
-    payload, totals = _compact_cuda(slabs, lens, slab)
+    pairs = []
+    slabs, lens, slab = _encode_slabs_cuda(symbols, freqs, cums, n_lanes, pairs)
+    payload, totals = _compact_cuda(slabs, lens, slab, pairs)
     encode_pack_nway.launches += 1
+    encode_pack_nway.events.append(tuple(pairs))
     return payload, lens, totals
 
 
@@ -361,11 +395,12 @@ def _decode_cuda(payload, starts, lens, freqs, cums, luts, steps):
     ln = _i32(lens, dev)
     table = decode_table(freqs.to(dev), cums.to(dev), luts.to(dev)).contiguous()
     out = torch.empty((s, steps, n_lanes), dtype=torch.uint8, device=dev)
-    _build.check(_lib().alc_decode_nway(
-        data.data_ptr(), data.numel(), st.data_ptr(), ln.data_ptr(),
-        table.data_ptr(), out.data_ptr(), s, steps, n_lanes, _stream(dev)),
-        "decode_nway")
+    pairs = []
+    _launch(dev, "decode_nway", pairs, _lib().alc_decode_nway,
+            data.data_ptr(), data.numel(), st.data_ptr(), ln.data_ptr(),
+            table.data_ptr(), out.data_ptr(), s, steps, n_lanes)
     decode_nway.launches += 1
+    decode_nway.events.append(tuple(pairs))
     return out
 
 
@@ -413,3 +448,5 @@ def decode_nway(payload: torch.Tensor, starts: torch.Tensor,
 encode_nway.launches = 0
 encode_pack_nway.launches = 0
 decode_nway.launches = 0
+encode_pack_nway.events = deque(maxlen=EVENTS_KEPT)
+decode_nway.events = deque(maxlen=EVENTS_KEPT)

@@ -27,16 +27,34 @@ histograms).  With ``mesh=`` (:func:`~.mesh.chunk_mesh`) the encode and
 decode stages run on every device over its shard of the batch; the
 entropy stage runs on the first, so the stream is the one without a
 mesh.
+
+The container's host stages are spans of :data:`STAGES` (a
+:class:`~alice_codec_tpu_torch.profiling.StageTimer`, per-call samples)
+and ``torch.profiler`` ranges of the same names:
+``alc2.encode.tables`` (the tables from the read-back histograms, up to
+their upload), ``alc2.encode.to_host`` (lane table and payload read back
+to the host; device entropy), ``alc2.decode.parse`` (header walk, tables,
+lane starts) and ``alc2.decode.upload`` (payload and tables staged for
+the device; device entropy).  Each opens after the blocking read before
+it, so it holds host time and the time of its blocking reads, not
+waiting for the device; uploads to a card are queued DMA copies from
+page-locked staging, timed on the device.  Per call,
+:data:`STAGES` also counts the blocking device → host reads
+(``alc2.<encode|decode>.d2h_reads``) and the bytes copied each way
+(``….d2h_bytes``, ``….h2d_bytes``) between the working device and the
+host (on the CPU the same calls, copying nothing).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import struct
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .._device import resolve_device
 from ..core import WaveletType, padded_dims, quality_to_step
@@ -45,10 +63,12 @@ from ..native import get_lib
 from ..ops.kernels.rans_nway import decode_nway, encode_pack_nway
 from ..ops.rans import FrequencyTable, RansDecoder, RansEncoder, _ctypes_ptr
 from ..pipeline import ChannelHeader, as_uint8_tensor, decode_device, encode_device
+from ..profiling import StageTimer
 from .mesh import gather, on_device, shard_batch
 
 __all__ = [
     "DEFAULT_LANES",
+    "STAGES",
     "BatchFrameEncoder",
     "BatchFrameDecoder",
     "EncodedChunkStream",
@@ -57,6 +77,9 @@ __all__ = [
 
 #: Default interleave width of the N-way rANS.
 DEFAULT_LANES = 64
+
+#: the container's host stages and copies, every call of this process
+STAGES = StageTimer()
 
 _MAGIC2 = b"ALC2"
 #: v2: per-lane step counts 8-aligned (:func:`_lane_sym_count`) — a
@@ -72,6 +95,50 @@ def _lane_sym_count(padded_pixels: int, n_lanes: int) -> int:
     steps = -(-padded_pixels // n_lanes)
     steps += (-steps) % 8
     return steps * n_lanes
+
+
+@contextlib.contextmanager
+def _span(name: str):
+    """A host stage: a span of :data:`STAGES` and a profiler range."""
+    with record_function(name), STAGES.stage(name):
+        yield
+
+
+class _Copies:
+    """One call's traffic between the working device and the host."""
+
+    def __init__(self, call: str):
+        self.call = call
+        self.reads = self.d2h = self.h2d = 0
+
+    def to_host(self, t: torch.Tensor, *, pinned: bool = False) -> np.ndarray:
+        """A blocking read of ``t``; ``pinned``: from a card into
+        page-locked memory of torch's caching host allocator, whose blocks
+        come back call after call (no fresh pages to fault in, one DMA
+        copy) and stay held while the returned array lives."""
+        self.reads += 1
+        self.d2h += t.numel() * t.element_size()
+        if pinned and t.is_cuda:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return host.copy_(t).numpy()
+        return t.cpu().numpy()
+
+    def to_device(self, a: np.ndarray, dev) -> torch.Tensor:
+        """``a`` on ``dev``: to a card through a page-locked staging block
+        of torch's caching host allocator, the copy queued on the current
+        stream (the block is reused once that copy is done)."""
+        self.h2d += a.nbytes
+        if torch.device(dev).type != "cuda":
+            return torch.from_numpy(a if a.flags.writeable else a.copy()).to(dev)
+        stage = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                            pin_memory=True)
+        stage.numpy()[...] = a
+        return stage.to(dev, non_blocking=True)
+
+    def record(self) -> None:
+        STAGES.tally(f"alc2.{self.call}.d2h_reads", self.reads)
+        STAGES.tally(f"alc2.{self.call}.d2h_bytes", self.d2h)
+        STAGES.tally(f"alc2.{self.call}.h2d_bytes", self.h2d)
 
 
 def chunk_frames(frames: np.ndarray, chunk_size: int = 64) -> tuple[np.ndarray, int]:
@@ -143,7 +210,9 @@ class EncodedChunkStream:
     n_lanes: int
     chunk_headers: list[list[ChannelHeader]]  # [chunk][channel]
     lane_lens: np.ndarray  # (n_chunks, 3, n_lanes) uint32
-    payload: bytes
+    #: bytes; from a device-entropy encode a read-only view of the host
+    #: memory it was read into (page-locked when read from a card)
+    payload: bytes | memoryview
 
     @property
     def n_chunks(self) -> int:
@@ -261,27 +330,32 @@ class BatchFrameEncoder:
         n_sym = _lane_sym_count(padded_pixels, self.n_lanes)
         lanes = self.n_lanes
 
+        copies = _Copies("encode")
         symbols_dev, hists_dev = self.encode_device_stage(batch)
-        hists = hists_dev.cpu().numpy().astype(np.uint32)
-        tables = [FrequencyTable.from_histogram(hists[ci, ch], sanitize=True)
-                  for ci in range(b) for ch in range(3)]
-
+        hists = copies.to_host(hists_dev).astype(np.uint32)
         syms = torch.nn.functional.pad(
             symbols_dev.reshape(b * 3, padded_pixels),
             (0, n_sym - padded_pixels))
+        dev = syms.device
+        # opens after the histograms' read, which waits for the encode stage
+        with _span("alc2.encode.tables"):
+            tables = [FrequencyTable.from_histogram(hists[ci, ch], sanitize=True)
+                      for ci in range(b) for ch in range(3)]
+            if self.device_entropy:
+                freqs = copies.to_device(
+                    np.stack([tb.freqs for tb in tables]).astype(np.int32), dev)
+                cums = copies.to_device(
+                    np.stack([tb.cums for tb in tables]).astype(np.int32), dev)
         if self.device_entropy:
-            dev = syms.device
-            freqs = torch.as_tensor(np.stack([tb.freqs for tb in tables]),
-                                    dtype=torch.int32).to(dev)
-            cums = torch.as_tensor(np.stack([tb.cums for tb in tables]),
-                                   dtype=torch.int32).to(dev)
             pay, lens, totals = encode_pack_nway(syms, freqs, cums,
                                                  n_lanes=lanes)
-            lane_lens = lens.cpu().numpy().astype(np.uint32).reshape(b, 3, lanes)
-            sizes = totals.cpu().tolist()
-            payload = pay.cpu().numpy().tobytes()
+            sizes = copies.to_host(totals).tolist()
+            # opens after the totals' read, which waits for K8
+            with _span("alc2.encode.to_host"):
+                lane_lens = copies.to_host(lens).astype(np.uint32).reshape(b, 3, lanes)
+                payload = memoryview(copies.to_host(pay, pinned=True)).toreadonly()
         else:
-            symbols = syms.cpu().numpy()
+            symbols = copies.to_host(syms)
             lib = get_lib()
             lane_lens = np.zeros((b * 3, lanes), np.uint32)
             parts, sizes = [], []
@@ -295,6 +369,7 @@ class BatchFrameEncoder:
                 sizes.append(total)
             payload = b"".join(parts)
             lane_lens = lane_lens.reshape(b, 3, lanes)
+        copies.record()
 
         chunk_headers = [
             [ChannelHeader(compressed_len=int(sizes[ci * 3 + ch]),
@@ -340,42 +415,46 @@ class BatchFrameDecoder:
         n_sym = _lane_sym_count(padded_pixels, lanes)
         dev = self.device
 
-        steps = np.empty((b, 3), np.int32)
-        payload = np.frombuffer(stream.payload, np.uint8)
-        tables, spans = [], []
-        offset = 0
-        for ci in range(b):
-            for ch in range(3):
-                hdr = stream.chunk_headers[ci][ch]
-                if hdr.num_symbols != padded_pixels:
-                    raise InvalidBitstream(
-                        f"chunk {ci} channel {ch}: num_symbols mismatch")
-                end = offset + hdr.compressed_len
-                if end > len(payload):
-                    raise InvalidBitstream(
-                        f"chunk {ci} channel {ch}: compressed data overrun")
-                spans.append((offset, end))
-                offset = end
-                tables.append(
-                    FrequencyTable.from_histogram(hdr.histogram, sanitize=True))
-                steps[ci, ch] = hdr.quant_step
+        copies = _Copies("decode")
+        device_entropy = self.device_entropy and b > 0
+        # the stream is host bytes: no read precedes the parse
+        with _span("alc2.decode.parse"):
+            steps = np.empty((b, 3), np.int32)
+            payload = np.frombuffer(stream.payload, np.uint8)
+            tables, spans = [], []
+            offset = 0
+            for ci in range(b):
+                for ch in range(3):
+                    hdr = stream.chunk_headers[ci][ch]
+                    if hdr.num_symbols != padded_pixels:
+                        raise InvalidBitstream(
+                            f"chunk {ci} channel {ch}: num_symbols mismatch")
+                    end = offset + hdr.compressed_len
+                    if end > len(payload):
+                        raise InvalidBitstream(
+                            f"chunk {ci} channel {ch}: compressed data overrun")
+                    spans.append((offset, end))
+                    offset = end
+                    tables.append(
+                        FrequencyTable.from_histogram(hdr.histogram, sanitize=True))
+                    steps[ci, ch] = hdr.quant_step
+            if device_entropy:
+                lens = stream.lane_lens.reshape(b * 3, lanes).astype(np.int64)
+                starts = np.cumsum(lens, axis=1) - lens
+                starts += np.asarray([s0 for s0, _ in spans], np.int64)[:, None]
+                # every lane inside the payload, whatever the lane table says
+                lens = np.clip(np.minimum(lens, len(payload) - starts), 0, None)
 
-        if self.device_entropy and b:
-            lens = stream.lane_lens.reshape(b * 3, lanes).astype(np.int64)
-            starts = np.cumsum(lens, axis=1) - lens
-            starts += np.asarray([s0 for s0, _ in spans], np.int64)[:, None]
-            # every lane inside the payload, whatever the lane table says
-            lens = np.clip(np.minimum(lens, len(payload) - starts), 0, None)
-            sym = decode_nway(
-                torch.from_numpy(payload.copy()).to(dev),
-                torch.from_numpy(starts).to(dev),
-                torch.from_numpy(lens.astype(np.int32)).to(dev),
-                torch.from_numpy(np.stack([tb.freqs for tb in tables])
-                                 .astype(np.int32)).to(dev),
-                torch.from_numpy(np.stack([tb.cums for tb in tables])
-                                 .astype(np.int32)).to(dev),
-                torch.from_numpy(np.stack([tb.cum_to_sym for tb in tables])).to(dev),
-                steps=n_sym // lanes)
+        if device_entropy:
+            # opens after the parse, with nothing of this call on the device
+            with _span("alc2.decode.upload"):
+                args = [copies.to_device(a, dev) for a in (
+                    payload, starts, lens.astype(np.int32),
+                    np.stack([tb.freqs for tb in tables]).astype(np.int32),
+                    np.stack([tb.cums for tb in tables]).astype(np.int32),
+                    np.stack([tb.cum_to_sym for tb in tables]))]
+            sym = decode_nway(*args, steps=n_sym // lanes)
+            del args                 # the payload leaves the card before the decode stage
             sym = sym.reshape(b, 3, n_sym)[:, :, :padded_pixels]
         else:
             lib = get_lib()
@@ -390,9 +469,9 @@ class BatchFrameDecoder:
                     _ctypes_ptr(table.freqs), _ctypes_ptr(table.cums),
                     _ctypes_ptr(table.cum_to_sym),
                     symbols[ci, ch].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
-            sym = torch.from_numpy(symbols[:, :, :padded_pixels]).to(dev)
+            sym = copies.to_device(symbols[:, :, :padded_pixels], dev)
 
-        steps_dev = torch.from_numpy(steps).to(dev)
+        steps_dev = copies.to_device(steps, dev)
         kw = dict(wavelet_type=stream.wavelet_type, dims=(w, h, t),
                   padded=padded, exact=exact)
         if not b:
@@ -403,7 +482,10 @@ class BatchFrameDecoder:
             rgb = gather(_decode_batch_device(
                 shard_batch(sym, self.mesh), shard_batch(steps_dev, self.mesh),
                 sharded=True, **kw), dev)
-        return rgb.cpu().numpy() if as_numpy else rgb
+        if as_numpy:
+            rgb = copies.to_host(rgb)
+        copies.record()
+        return rgb
 
 
 # ── pure-Python N-way coder (the spec) ──────────────────────────

@@ -5,7 +5,10 @@
   of the JAX package's, that feeds
   :class:`~alice_codec_tpu_torch.bridges.db.CodecMetrics` records; time
   device work with the device synchronized inside the stage, since CUDA
-  launches return before the card is done;
+  launches return before the card is done.  Beside the JAX package's
+  totals it keeps each stage's newest per-call times (``samples``, so a
+  reader can take a median that leaves the warm-up out) and named
+  per-call counts (:meth:`StageTimer.tally`);
 * :func:`trace` — context manager around ``torch.profiler`` that writes a
   Chrome trace (``trace.json``, viewable in chrome://tracing or Perfetto)
   into ``log_dir``, where the JAX package drives ``jax.profiler``.
@@ -17,11 +20,14 @@ import contextlib
 import os
 import tempfile
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from dataclasses import dataclass, field
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+#: per-call samples a :class:`StageTimer` keeps of each name (the newest)
+SAMPLES = 1024
 
 
 @dataclass
@@ -37,6 +43,12 @@ class StageTimer:
 
     totals: dict = field(default_factory=lambda: defaultdict(float))
     counts: dict = field(default_factory=lambda: defaultdict(int))
+    #: name → the newest :data:`SAMPLES` per-call values: a stage's
+    #: seconds, or what :meth:`tally` recorded
+    samples: dict = field(
+        default_factory=lambda: defaultdict(lambda: deque(maxlen=SAMPLES)))
+    #: name → the running sum of :meth:`tally`
+    counters: dict = field(default_factory=lambda: defaultdict(int))
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -47,6 +59,12 @@ class StageTimer:
             dt = time.perf_counter() - t0
             self.totals[name] += dt
             self.counts[name] += 1
+            self.samples[name].append(dt)
+
+    def tally(self, name: str, n: int) -> None:
+        """Record one call's count ``n`` of ``name`` (reads, bytes)."""
+        self.counters[name] += n
+        self.samples[name].append(n)
 
     def average_us(self, name: str) -> float:
         """Mean stage time in microseconds (CodecMetrics.encode_time_us units)."""
