@@ -23,7 +23,7 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "build", "check", "library"]
 
-SOURCES = ("lift", "rans3", "sparse", "rans_nway")
+SOURCES = ("lift", "rans3", "sparse", "rans_nway", "hist")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _OUT = Path(__file__).resolve().parent / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -58,6 +58,7 @@ import torch
 from ._device import resolve_device
 from .core import WaveletType, padded_dims_levels, quality_to_step
 from .errors import InvalidBitstream, InvalidBufferSize
+from .ops.kernels.hist import plane_stats
 from .ops.kernels.rans3 import (
     DEFAULT_V_SEG,
     NG,
@@ -72,7 +73,6 @@ from .ops.tables_device import freq_table_device
 from .parallel.mesh import gather, on_device, shard_batch
 from .pipeline import (
     ChannelHeader,
-    _histograms,
     as_uint8_tensor,
     decode_bands_device,
     decode_deep_device,
@@ -138,13 +138,14 @@ def _pick_v_seg(n_seg: int) -> int:
     return v
 
 
-def _covered_hist(hists: torch.Tensor, symbols: torch.Tensor) -> torch.Tensor:
+def _covered_hist(hists: torch.Tensor, maxima: torch.Tensor) -> torch.Tensor:
     """Wire v7 coverage floor: every bin up to the plane's exact symbol
     maximum is lifted to ≥ 1, so a zero bin promises the symbol never
-    occurs.  ``hists``: (n, 256); ``symbols``: (n, P)."""
-    mx = symbols.amax(dim=-1).to(torch.int64)
+    occurs.  ``hists``: (n, 256); ``maxima``: (n,) int64, each plane's
+    symbol maximum (``plane_stats`` takes it in the histograms' pass)."""
     idx = torch.arange(256, device=hists.device)
-    return torch.where(idx[None, :] <= mx[:, None], hists.clamp(min=1), hists)
+    return torch.where(idx[None, :] <= maxima[:, None], hists.clamp(min=1),
+                       hists)
 
 
 def _sparse_pp(p: int) -> int:
@@ -187,16 +188,16 @@ def _sampled_len(n: int, stride: int = HIST_STRIDE) -> int:
     return nb * NG if nb else n
 
 
-def _entropy_encode(symbols, hists, *, s_seg: int, v_seg: int,
+def _entropy_encode(symbols, hists, maxima, *, s_seg: int, v_seg: int,
                     p: int | None = None):
-    """Dense entropy stage: (n, P) uint8 planes and their sampled
-    histograms → ``(streams, counts, covered hists)``; one table per plane,
-    one encode launch for all of them.  ``p``: the planes' symbols where
-    ``symbols`` already holds them zero-padded to the segment grid (a
-    batch's buffer)."""
+    """Dense entropy stage: (n, P) uint8 planes, their sampled histograms
+    and their symbol maxima → ``(streams, counts, covered hists)``; one
+    table per plane, one encode launch for all of them.  ``p``: the
+    planes' symbols where ``symbols`` already holds them zero-padded to
+    the segment grid (a batch's buffer)."""
     n, width = symbols.shape
     p = width if p is None else p
-    hists = _covered_hist(hists, symbols)
+    hists = _covered_hist(hists, maxima)
     freqs, cums = freq_table_device(
         _table_hists(hists, p, s_seg=s_seg, v_seg=v_seg))
     n_seg, m = _segment_geometry(p, s_seg, v_seg)
@@ -278,20 +279,16 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
     zero_bm_hist = torch.zeros(256, dtype=torch.int64, device=dev)
     zero_bm_hist[0] = _sampled_len(pp // 8)
     zero_v_hist = torch.zeros(256, dtype=torch.int64, device=dev)
-    bm_hists = [_covered_hist(_histograms(bm_parts[c][None], HIST_STRIDE),
-                              bm_parts[c][None])[0]
-                if c in bm_parts else zero_bm_hist for c in range(npv)]
+    # the covered histograms of every bitmap and coded value plane, in one
+    # pass over them
+    counted = [bm_parts[c] for c in bm_parts] + [values[c] for c in coded]
+    stats = iter(_covered_hist(*plane_stats(counted, HIST_STRIDE))
+                 if counted else ())
+    bm_hists = dict(zip(bm_parts, stats))
+    v_hists = dict(zip(coded, stats))
     pos = {w: i for i, w in enumerate(wire_active)}
-    rows = [bm_hists[pos[w]] if w in pos else zero_bm_hist
-            for w in range(wire_nc)]
-    for w in range(wire_nc):
-        i = pos.get(w)
-        if i in coded:
-            v = values[i][None, :]
-            rows.append(_covered_hist(
-                _histograms(v, HIST_STRIDE), v)[0])
-        else:
-            rows.append(zero_v_hist)
+    rows = [bm_hists.get(pos.get(w), zero_bm_hist) for w in range(wire_nc)]
+    rows += [v_hists.get(pos.get(w), zero_v_hist) for w in range(wire_nc)]
     hists = torch.stack(rows)
     # one table per segment group: each coded plane's bitmap (a dense
     # plane's segments are elided and never read theirs), then its values
@@ -737,22 +734,22 @@ class Alc3Codec:
             streams, counts, hists, kcaps = self._encode_sparse(rgb, padded)
         else:
             if self.rdo:
-                planes, hists = encode_bands_device(
+                planes, hists, maxima = encode_bands_device(
                     coeffs, steps8, dzs8, padded=padded,
                     hist_stride=HIST_STRIDE)
                 del coeffs
             else:
                 if self.deep:
-                    planes, hists = encode_deep_device(
+                    planes, hists, maxima = encode_deep_device(
                         rgb, self.step, self.step, hist_stride=HIST_STRIDE,
                         **stage)
                 else:
-                    planes, hists = encode_device(
+                    planes, hists, maxima = encode_device(
                         rgb, self.step, self.step, hist_stride=HIST_STRIDE,
                         interleaved=True, **stage)
             v_seg = _pick_v_seg(_segment_geometry(p, self.s_seg)[0])
             streams, counts, hists = _entropy_encode(
-                planes, hists, s_seg=self.s_seg, v_seg=v_seg)
+                planes, hists, maxima, s_seg=self.s_seg, v_seg=v_seg)
         return DeviceChunk(w, h, t, self.wavelet_type, step, self.s_seg,
                            streams, counts, hists, band_steps=band_steps,
                            deep=self.deep, levels=self.levels,
@@ -836,19 +833,20 @@ class Alc3Codec:
         p = int(np.prod(padded))
         n_seg, m = _segment_geometry(p, self.s_seg)
         buf = torch.empty((3 * b, m), dtype=torch.uint8, device=x.device)
-        hists = []
+        hists, maxima = [], []
         for i in range(b):
-            planes, hist = encode_device(
+            planes, hist, mx = encode_device(
                 x[i], self.step, self.step, wavelet_type=self.wavelet_type,
                 padded=padded, levels=self.levels, hist_stride=HIST_STRIDE,
                 interleaved=True)
             buf[3 * i : 3 * i + 3, :p].copy_(planes)
             hists.append(hist)
+            maxima.append(mx)
             del planes
         buf[:, p:].zero_()
         streams, counts, hists = _entropy_encode(
-            buf, torch.cat(hists), s_seg=self.s_seg, v_seg=_pick_v_seg(n_seg),
-            p=p)
+            buf, torch.cat(hists), torch.cat(maxima), s_seg=self.s_seg,
+            v_seg=_pick_v_seg(n_seg), p=p)
         rows = 3 * n_seg
         return [DeviceChunk(w, h, t, self.wavelet_type, self.step, self.s_seg,
                             streams[i * rows : (i + 1) * rows],

@@ -83,7 +83,12 @@ def from_symbols16(symbols: torch.Tensor) -> torch.Tensor:
 
 def build_histogram(symbols: torch.Tensor) -> torch.Tensor:
     """256-bin histogram of byte symbols over all elements, int64 (the
-    JAX package returns uint32; the counts are equal)."""
+    JAX package returns uint32; the counts are equal).  uint8 symbols on
+    the card go through the plane-statistics kernel
+    (``ops/kernels/hist.py``), one launch."""
+    if symbols.is_cuda and symbols.dtype == torch.uint8:
+        from .kernels.hist import plane_stats  # ops.kernels imports this module
+        return plane_stats([symbols.reshape(-1)])[0][0]
     return torch.bincount(symbols.reshape(-1).to(torch.int64), minlength=256)
 
 

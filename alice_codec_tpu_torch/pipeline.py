@@ -21,7 +21,8 @@ The ALC3 stages (interleaved layout):
 
 * encode: uint8 RGB (T, H, W, 3) → YCoCg-R → edge pad (int16) → fused
   lift + quantize + zigzag kernel → uint8 symbols (3, P) and row-sampled
-  256-bin histograms;
+  256-bin histograms (with each plane's symbol maximum, for ALC3's
+  coverage floor, from the same pass: ``ops/kernels/hist.py``);
 * decode: symbols (3, P) → fused dequantize + inverse lift kernel →
   crop → inverse YCoCg-R → uint8 RGB;
 * where nothing is padded and the frames are of the fused kernels' fast
@@ -59,6 +60,7 @@ from .ops.rans import RANS32_L, FrequencyTable, RansDecoder, RansEncoder
 from .ops.kernels.lift import (_FRAME_BYTES, forward_3d, forward_quant,
                                forward_quant_rgb, inverse_3d, inverse_dequant,
                                inverse_dequant_rgb, rgb_frame)
+from .ops.kernels.hist import plane_stats, sampled
 from .ops.kernels.sparse import tile_rows
 
 __all__ = ["ChannelHeader", "EncodedChunk", "FrameEncoder", "FrameDecoder",
@@ -182,27 +184,9 @@ def _inverse_rgb(coeffs: torch.Tensor, wavelet_type, dims, levels: int,
     return color.ycocg_r_to_rgb(chans[0], chans[1], chans[2])
 
 
-def _hist_sample(sym2d: torch.Tensor, stride: int) -> torch.Tensor:
-    """Row-subsample a (nc, N) symbol plane for histogram building: the
-    first 128-lane row of every ``stride`` rows.  Planes smaller than one
-    stride block are returned whole.  (The sampled histogram rides the
-    wire, so encoder and decoder build the same tables from it.)"""
-    if stride <= 1:
-        return sym2d
-    nc, n = sym2d.shape
-    blk = stride * 128
-    nb = n // blk
-    if nb == 0:
-        return sym2d
-    s = sym2d[:, : nb * blk].reshape(nc, nb, stride, 128)[:, :, 0, :]
-    return s.reshape(nc, nb * 128)
-
-
-def _histograms(planes: torch.Tensor, stride: int) -> torch.Tensor:
-    """(n, N) byte planes → (n, 256) int64 histograms of their
-    :func:`_hist_sample` rows."""
-    return torch.stack([quant.build_histogram(row)
-                        for row in _hist_sample(planes, stride)])
+#: Row-subsample (nc, N) symbol planes for histogram building (the JAX
+#: package's name for the rule; the sampled histogram rides the wire).
+_hist_sample = sampled
 
 
 def _symbols(rgb: torch.Tensor, step, dead_zone, *, wavelet_type, padded,
@@ -230,7 +214,10 @@ def encode_device(rgb: torch.Tensor, step: int, dead_zone: int, *,
                   wavelet_type: WaveletType, padded, levels: int = 1,
                   hist_stride: int = 1, interleaved: bool = False):
     """Encode stage: ``rgb`` uint8 (T, H, W, 3) on the working device →
-    ``(symbols (3, P) uint8, histograms (3, 256) int64)``.
+    ``(symbols (3, P) uint8, histograms (3, 256) int64, maxima (3,)
+    int64)``: the histograms of the planes' :func:`_hist_sample` rows and
+    each plane's symbol maximum (ALC3's coverage floor; the other wires
+    leave it unread), from one pass (``ops/kernels/hist.py``).
 
     ``interleaved=True``: ALC3's layout (:func:`_symbols`).
     ``interleaved=False``: the reference layout of the `.alc` and ALC2
@@ -243,7 +230,7 @@ def encode_device(rgb: torch.Tensor, step: int, dead_zone: int, *,
         _check_reference_levels(levels)
         sym = _lift_quant(rgb, wavelet_type, step, dead_zone, padded)
         symbols = wavelet.deinterleave_3d(sym).reshape(3, -1)
-    return symbols, _histograms(symbols, hist_stride)
+    return (symbols, *plane_stats(symbols, hist_stride))
 
 
 def transform_moments_device(rgb: torch.Tensor, *, wavelet_type: WaveletType,
@@ -260,11 +247,12 @@ def transform_moments_device(rgb: torch.Tensor, *, wavelet_type: WaveletType,
 def encode_bands_device(coeffs: torch.Tensor, steps8, dead_zones8, *,
                         padded, hist_stride: int = 1):
     """RDO phase 2: per-band quantize → ``(symbols (3, P) uint8,
-    histograms (3, 256) int64)``.  ``steps8`` / ``dead_zones8``: (3, 8)."""
+    histograms (3, 256) int64, maxima (3,) int64)``, as
+    :func:`encode_device`.  ``steps8`` / ``dead_zones8``: (3, 8)."""
     pw, ph, pf = padded
     q = quant.quantize_bands_inter(coeffs, steps8, dead_zones8)
     symbols = quant.to_symbols(q).reshape(3, pf * ph * pw)
-    return symbols, _histograms(symbols, hist_stride)
+    return (symbols, *plane_stats(symbols, hist_stride))
 
 
 def decode_bands_device(symbols: torch.Tensor, steps8, *,
@@ -293,11 +281,12 @@ def encode_deep_device(rgb: torch.Tensor, step, dead_zone, *,
                        wavelet_type: WaveletType, padded, levels: int = 1,
                        hist_stride: int = 1):
     """Deep (16-bit symbol) encode stage — ALC3's escape coding:
-    ``(planes (6, P) uint8, histograms (6, 256) int64)``.  With q=100
-    (step 1) and the exact inverse it is lossless on any input."""
+    ``(planes (6, P) uint8, histograms (6, 256) int64, maxima (6,)
+    int64)``, as :func:`encode_device`.  With q=100 (step 1) and the exact inverse
+    it is lossless on any input."""
     planes = _deep_planes(rgb, step, dead_zone, wavelet_type=wavelet_type,
                           padded=padded, levels=levels)
-    return planes, _histograms(planes, hist_stride)
+    return (planes, *plane_stats(planes, hist_stride))
 
 
 def decode_deep_device(planes: torch.Tensor, step: torch.Tensor, *,
@@ -630,7 +619,7 @@ class FrameEncoder:
         padded_pixels = padded[0] * padded[1] * padded[2]
         step = quality_to_step(self.quality)
         dead_zone = step  # Quantizer::new semantics (src/quant.rs:70-75)
-        symbols_dev, hists_dev = encode_device(
+        symbols_dev, hists_dev, _ = encode_device(
             rgb, step, dead_zone, wavelet_type=self.wavelet_type,
             padded=padded, interleaved=False)
         symbols = symbols_dev.cpu().numpy()

@@ -27,7 +27,11 @@ Phases (any failure raises and exits non-zero before the last line):
    counts and tables in one launch, with noise and corrupt counts, and
    the encoder's reciprocal division at every frequency), and the
    word-rANS kernels again on the north star's planes as its one launch
-   each way gets them;
+   each way gets them; the plane-statistics kernel (``plane_stats``,
+   port-only: every encode's histograms and coverage maxima) on the planes
+   the north star's sparse wire, the lossless chunk and the ALC2 batch
+   give it, recorded as they encode, timed beside its bound, its plain
+   version and ``torch.bincount``;
    with per-kernel timings and the lifts' device time split by kernel
    (spatial and temporal pass), K1 from RGB and K4 to RGB (the colour in
    the tile pass, the codec's route at this chunk) against the plain
@@ -44,8 +48,11 @@ Phases (any failure raises and exits non-zero before the last line):
 4. the paths at full width, each over one 64×1080×1920 chunk kept on
    the card, with the launch counts of every kernel set to 0 just before
    the path's encode → decode and read just after (each ALC3 path must
-   launch ``encode_words`` and ``decode_words`` exactly once, and every
-   K1 / K4 launch of an ALC3 path take RGB frames, ``rgb_launches``):
+   launch ``encode_words``, ``decode_words`` and ``plane_stats`` exactly
+   once, and every K1 / K4 launch of an ALC3 path take RGB frames,
+   ``rgb_launches``; ``plane_stats``'s count is read beside the package's
+   ``launch_counts()``, which leaves it out, by this script's own
+   :func:`launch_counts`):
    ``Alc3Codec(90, "cdf53")`` (dense), the north star
    ``Alc3Codec(90, "cdf53", sparse=True)``,
    ``Alc3Codec(50, "cdf53", sparse=True)``, ``Alc3Codec(100, "haar")``
@@ -261,7 +268,7 @@ def plain_kernels():
     """Route the codec's kernel calls to the plain versions (on the card)
     for the span of the block."""
     from alice_codec_tpu_torch import alc3, pipeline
-    from alice_codec_tpu_torch.ops.kernels import lift, rans3, rans_nway, sparse
+    from alice_codec_tpu_torch.ops.kernels import hist, lift, rans3, rans_nway, sparse
     from alice_codec_tpu_torch.parallel import batch
 
     swaps = [
@@ -275,6 +282,8 @@ def plain_kernels():
         (alc3, "decode_words", rans3.decode_words_plain),
         (alc3, "compact", sparse.compact_plain),
         (alc3, "expand", sparse.expand_plain),
+        (alc3, "plane_stats", hist.plane_stats_plain),
+        (pipeline, "plane_stats", hist.plane_stats_plain),
         (batch, "encode_pack_nway", rans_nway.encode_pack_nway_plain),
         (batch, "decode_nway", rans_nway.decode_nway_plain),
     ]
@@ -293,6 +302,127 @@ def only_launches(launches: dict, want: dict) -> bool:
     return all(launches[k] == want.get(k, 0) for k in launches)
 
 
+def launch_counts() -> dict:
+    """The port's launch counts (``ops.kernels.launch_counts()``) and,
+    under ``plane_stats``, the plane-statistics kernel's, which
+    ``launch_counts()`` leaves out while ``benchmark/roofline.py`` counts
+    none of its bytes."""
+    from alice_codec_tpu_torch.ops.kernels import hist
+    from alice_codec_tpu_torch.ops.kernels import launch_counts as counts
+
+    return {**counts(), "plane_stats": hist.plane_stats.launches}
+
+
+def reset_launches() -> None:
+    """Set every count :func:`launch_counts` reads to 0."""
+    from alice_codec_tpu_torch.ops.kernels import hist
+    from alice_codec_tpu_torch.ops.kernels import reset_launches as reset
+
+    reset()
+    hist.plane_stats.launches = 0
+
+
+def recorded_plane_stats(fn) -> list:
+    """The calls ``fn()`` makes of the plane-statistics kernel from the
+    codec (``alc3`` and ``pipeline``), as ``(planes, stride)``: each plane
+    copied when the call is made, at its address modulo 16 (the kernel's
+    edge bytes follow it), so that what the path writes over its buffers
+    later leaves the copies as the kernel saw them."""
+    import torch
+    from alice_codec_tpu_torch import alc3, pipeline
+    from alice_codec_tpu_torch.ops.kernels import hist
+
+    calls, real = [], hist.plane_stats
+
+    def record(planes, stride=1):
+        copies = []
+        for v in hist._views(planes):
+            off = v.data_ptr() % 16
+            buf = torch.empty(v.numel() + off, dtype=torch.uint8, device=v.device)
+            copies.append(buf[off:].copy_(v))
+        calls.append((copies, stride))
+        return real(planes, stride)
+
+    saved = [(mod, mod.plane_stats) for mod in (alc3, pipeline)]
+    try:
+        for mod, _ in saved:
+            mod.plane_stats = record
+        fn()
+    finally:
+        for mod, f in saved:
+            mod.plane_stats = f
+    return calls
+
+
+def plane_stats_case(name: str, calls: list, card: str) -> dict:
+    """One set of plane-statistics calls ``(planes, stride)`` (as
+    :func:`recorded_plane_stats` gives them): the kernel against its plain
+    version, bit-exact, then the calls timed by CUDA events beside their
+    bound (each plane's bytes read once: the maxima read whole planes),
+    the plain version, and ``torch.bincount`` of the counted symbols
+    (uint8, gathered beforehand) as the library's yardstick."""
+    import torch
+    from alice_codec_tpu_torch.ops.kernels import hist
+
+    err, n0 = 0, hist.plane_stats.launches
+    for planes, stride in calls:
+        got = hist.plane_stats(planes, stride)
+        want = hist.plane_stats_plain(planes, stride)
+        err = max(err, *(max_abs_err(a, b) for a, b in zip(got, want)))
+    launches = hist.plane_stats.launches - n0
+    check(err == 0, f"plane_stats on the {name} planes differs from its plain "
+                    f"version by {err}")
+    rows = [hist.sampled(v, stride).contiguous()
+            for planes, stride in calls for v in planes]
+    nbytes = sum(v.numel() for planes, _ in calls for v in planes)
+    c = dict(
+        max_abs_err=err, launches=launches,
+        planes=[len(planes) for planes, _ in calls],
+        lengths=[v.numel() for planes, _ in calls for v in planes],
+        stride=calls[0][1], bytes=nbytes, bound_ms=bound_ms(nbytes),
+        ms=time_ms(lambda: [hist.plane_stats(*call) for call in calls], 20),
+        plain_ms=time_ms(lambda: [hist.plane_stats_plain(*call) for call in calls], 2),
+        library_ms=time_ms(lambda: [torch.bincount(r, minlength=256) for r in rows], 3))
+    c["roofline_pct"] = 100 * c["bound_ms"] / c["ms"]
+    print(f"plane_stats, {name}: {len(calls)} call(s) of {c['planes']} planes "
+          f"(stride {c['stride']}, {nbytes:,} bytes, {launches} launches) "
+          f"bit-exact against the plain version; {c['ms']:.4f} ms (bound "
+          f"{c['bound_ms']:.4f} ms, {c['roofline_pct']:.1f} %), plain "
+          f"{c['plain_ms']:.3f} ms, torch.bincount {c['library_ms']:.3f} ms [{card}]")
+    return c
+
+
+def plane_stats_cases(rgb, batch, card: str) -> dict:
+    """Phase 2's plane-statistics kernel (``hist.plane_stats``, port-only)
+    on the planes three paths give it as they encode
+    (:func:`plane_stats_case` each): the north star's sparse wire (its
+    bitmaps and value planes, stride 16) over the chunk ``rgb``, the
+    lossless chunk's 6 byte planes (stride 16) and the ALC2 batch
+    ``batch`` (a call of 3 full planes a chunk, stride 1).  The entry's
+    own numbers are the north star's."""
+    import torch
+    from alice_codec_tpu_torch import Alc3Codec
+    from alice_codec_tpu_torch.parallel import BatchFrameEncoder
+
+    alc2 = BatchFrameEncoder(QUALITY, "cdf53", n_lanes=ALC2_LANES,
+                             device_entropy=True)
+    paths = {
+        "north_star": lambda: Alc3Codec(QUALITY, "cdf53", sparse=True).encode(rgb),
+        "lossless": lambda: Alc3Codec(100, "haar").encode(rgb),
+        "alc2_batch": lambda: alc2.encode_device_stage(batch),
+    }
+    cases = {}
+    for name, fn in paths.items():
+        calls = recorded_plane_stats(fn)
+        torch.cuda.empty_cache()
+        cases[name] = plane_stats_case(name, calls, card)
+        del calls
+        torch.cuda.empty_cache()
+    ns = cases["north_star"]
+    return dict(max_abs_err=0, ms=ns["ms"], plain_ms=ns["plain_ms"],
+                bound_ms=ns["bound_ms"], library_ms=ns["library_ms"], cases=cases)
+
+
 def bench_routes(rgb, rgb5_np, card: str) -> dict:
     """Phase 4c: ``bench.py``'s config3 (the cdf97 sweep with device PSNR /
     SSIM, over the (T, H, W, 3) chunk ``rgb`` on the card) and config5
@@ -306,7 +436,6 @@ def bench_routes(rgb, rgb5_np, card: str) -> dict:
                                        RateController, psnr,
                                        segment_by_motion, ssim)
     from alice_codec_tpu_torch.metrics import psnr_device
-    from alice_codec_tpu_torch.ops.kernels import launch_counts, reset_launches
     from alice_codec_tpu_torch.ssim import ssim_device
 
     by_path = {}
@@ -330,7 +459,8 @@ def bench_routes(rgb, rgb5_np, card: str) -> dict:
         peak3 = max(peak3, torch.cuda.max_memory_allocated() / 2**30)
         launches = launch_counts()
         check(only_launches(launches, {"forward_quant": 1, "encode_words": 1,
-                                       "decode_words": 1, "inverse_dequant": 1}),
+                                       "decode_words": 1, "inverse_dequant": 1,
+                                       "plane_stats": 1}),
               f"config3 q={q}: expected K1-K4 once each, got {launches}")
         total = {k: total.get(k, 0) + n for k, n in launches.items()}
         if q in (CONFIG3_Q[0], CONFIG3_Q[-1]):
@@ -403,8 +533,9 @@ def bench_routes(rgb, rgb5_np, card: str) -> dict:
         chunk5 = codec.encode(rgb5)
         size_bits = chunk5.compressed_size * 8
         launches = launch_counts()
-        check(only_launches(launches, {"forward_quant": 1, "encode_words": 1}),
-              f"config5 q={q}: expected K1 and K2 once, got {launches}")
+        check(only_launches(launches, {"forward_quant": 1, "encode_words": 1,
+                                       "plane_stats": 1}),
+              f"config5 q={q}: expected K1, K2 and plane_stats once, got {launches}")
         total = {k: total.get(k, 0) + n for k, n in launches.items()}
         sizes.append(size_bits // 8)
         for _ in range(t5):
@@ -483,7 +614,6 @@ def tools_routes(rgb_np, sparse50, alc90, card: str) -> dict:
 
     from alice_codec_tpu_torch import Alc3Codec, EncodedChunk, cli, ffi, psnr
     from alice_codec_tpu_torch.bridges import cache, db, ml
-    from alice_codec_tpu_torch.ops.kernels import launch_counts, reset_launches
     from alice_codec_tpu_torch.profiling import StageTimer
     from alice_codec_tpu_torch.utils import (AlcStreamReader, AlcStreamWriter,
                                              read_raw_rgb, write_raw_rgb)
@@ -538,11 +668,11 @@ def tools_routes(rgb_np, sparse50, alc90, card: str) -> dict:
         sparse_rgb = sparse50[1].cpu().numpy()
         info = roundtrip(
             "cli_alc3_sparse_q50", ["--format", "alc3", "--sparse", "-q", "50"],
-            {"forward_quant": 1, "encode_words": 1, "compact": 1},
+            {"forward_quant": 1, "encode_words": 1, "compact": 1, "plane_stats": 1},
             {"decode_words": 1, "expand": 1, "inverse_dequant": 1},
             sparse50[0], sparse_rgb.tobytes(), timer)
         check("ALC3 (1 chunk(s), sparse)" in info, f"cli info printed {info!r}")
-        roundtrip("cli_alc_q90", ["-q", "90"], {"forward_quant": 1},
+        roundtrip("cli_alc_q90", ["-q", "90"], {"forward_quant": 1, "plane_stats": 1},
                   {"inverse_3d": 1}, alc90[0], alc90[1].tobytes())
         half = t // 2
         codec = Alc3Codec(90)
@@ -550,7 +680,7 @@ def tools_routes(rgb_np, sparse50, alc90, card: str) -> dict:
         ref_rgb = torch.cat([codec.decode(c) for c in ref]).cpu().numpy().tobytes()
         roundtrip("cli_alc3_chunked_q90",
                   ["--format", "alc3", "-q", "90", "--chunk-size", str(half)],
-                  {"forward_quant": 2, "encode_words": 2},
+                  {"forward_quant": 2, "encode_words": 2, "plane_stats": 2},
                   {"decode_words": 2, "inverse_dequant": 2},
                   Alc3Codec.to_bytes(ref), ref_rgb)
         del ref, ref_rgb
@@ -621,8 +751,9 @@ def tools_routes(rgb_np, sparse50, alc90, card: str) -> dict:
         lib.alice_codec_data_free(ptr, n.value)
         enc = launch_counts()
         print(f"ffi_alc_q90 encode launches: {enc}")
-        check(only_launches(enc, {"forward_quant": 1}),
-              f"ffi_alc_q90 encode: expected forward_quant 1, got {enc}")
+        check(only_launches(enc, {"forward_quant": 1, "plane_stats": 1}),
+              f"ffi_alc_q90 encode: expected forward_quant and plane_stats 1, "
+              f"got {enc}")
         check(data == alc90[0], "ffi_alc_q90: chunk bytes differ from phase 4's .alc")
         check((lib.alice_codec_chunk_width(chunk), lib.alice_codec_chunk_height(chunk),
                lib.alice_codec_chunk_frames(chunk)) == (w, h, t), "ffi chunk dims")
@@ -740,8 +871,7 @@ def main() -> int:
         BatchFrameDecoder, BatchFrameEncoder, EncodedChunkStream, chunk_mesh)
     from alice_codec_tpu_torch.parallel.batch import _lane_sym_count
     from alice_codec_tpu_torch.utils.golden import golden_rgb
-    from alice_codec_tpu_torch.ops.kernels import (
-        launch_counts, lift, rans3, rans_nway, reset_launches)
+    from alice_codec_tpu_torch.ops.kernels import lift, rans3, rans_nway
     from alice_codec_tpu_torch.ops.kernels.lift import (
         forward_3d, forward_3d_plain, forward_quant, forward_quant_plain,
         forward_quant_rgb, forward_quant_rgb_plain, inverse_3d, inverse_3d_plain,
@@ -1115,10 +1245,10 @@ def main() -> int:
           f"{T}x{H}x{W} (3 wavelets, both inverse modes)")
 
     # K2 / K3 at full width: all 3·512 segments of the chunk
-    symbols, hists = pipeline.encode_device(
+    symbols, hists, maxima = pipeline.encode_device(
         rgb, step, step, wavelet_type=wt, padded=padded,
         hist_stride=alc3.HIST_STRIDE, interleaved=True)
-    hists = alc3._covered_hist(hists, symbols)
+    hists = alc3._covered_hist(hists, maxima)
     n_seg, m = alc3._segment_geometry(p, alc3.DEFAULT_S_SEG)
     freqs, cums = freq_table_device(
         alc3._table_hists(hists, p, s_seg=alc3.DEFAULT_S_SEG))
@@ -1536,6 +1666,11 @@ def main() -> int:
     del syms, payload_t, starts_t, lens_t, totals_t, m8, m9, f_t, c_t, lut_t
     torch.cuda.empty_cache()
 
+    # the plane statistics on the planes the north star, the lossless chunk
+    # and the ALC2 batch give the kernel
+    stats["plane_stats"] = plane_stats_cases(rgb, batch_dev, card)
+    torch.cuda.empty_cache()
+
     for name, s in stats.items():
         print(f"{name}: {s['ms']:.3f} ms per launch (plain {s['plain_ms']:.1f} ms, "
               f"bytes bound {s['bound_ms']:.3f} ms), max |kernel - plain| "
@@ -1689,9 +1824,10 @@ def main() -> int:
             need += ["compact", "expand"]
         for k in need:
             check(launches[k] > 0, f"kernel {k} was not launched on {name}")
-        check(launches["encode_words"] == launches["decode_words"] == 1,
-              f"{name}: expected one encode_words and one decode_words launch "
-              f"a roundtrip, got {launches}")
+        check(launches["encode_words"] == launches["decode_words"] == 1
+              and launches["plane_stats"] == 1,
+              f"{name}: expected one encode_words, one decode_words and one "
+              f"plane_stats launch a roundtrip, got {launches}")
 
         s_seg = chunk.s_seg
         if fused:
@@ -1705,7 +1841,7 @@ def main() -> int:
                     chunk.streams, chunk.counts, chunk.hists, p=p,
                     s_seg=s_seg, kcaps=chunk.kcaps, v_b=alc3._pick_v_seg(nb))
             else:
-                sym_enc, _ = pipeline.encode_device(
+                sym_enc, _, _ = pipeline.encode_device(
                     rgb, codec.step, codec.step,
                     wavelet_type=codec.wavelet_type, padded=padded,
                     hist_stride=alc3.HIST_STRIDE, interleaved=True)
@@ -1770,8 +1906,10 @@ def main() -> int:
     t_alc = (t1 - t0, time.perf_counter() - t1)
     launches = launch_counts()
     print(f"alc_q90 launches: {launches}")
-    check(only_launches(launches, {"forward_quant": 1, "inverse_3d": 1}),
-          f"alc_q90: expected forward_quant 1 and inverse_3d 1, got {launches}")
+    check(only_launches(launches, {"forward_quant": 1, "inverse_3d": 1,
+                                   "plane_stats": 1}),
+          f"alc_q90: expected forward_quant, inverse_3d and plane_stats 1, got "
+          f"{launches}")
     by_path["alc_q90"] = launches
     with plain_kernels():
         pa_data = FrameEncoder(QUALITY, "cdf53").encode(rgb, W, H, T).to_bytes()
@@ -1802,8 +1940,9 @@ def main() -> int:
     print(f"alc2_q90 launches: {launches}")
     check(only_launches(launches, {"forward_quant": ALC2_CHUNKS,
                                    "inverse_3d": ALC2_CHUNKS,
+                                   "plane_stats": ALC2_CHUNKS,
                                    "encode_pack_nway": 1, "decode_nway": 1}),
-          f"alc2_q90: expected forward_quant {ALC2_CHUNKS}, inverse_3d "
+          f"alc2_q90: expected forward_quant, inverse_3d and plane_stats "
           f"{ALC2_CHUNKS}, encode_pack_nway 1, decode_nway 1, got {launches}")
     by_path["alc2_q90"] = launches
     t0 = time.perf_counter()
@@ -1854,8 +1993,11 @@ def main() -> int:
             torch.cuda.synchronize()
             launches = launch_counts()
             print(f"{name} launches: {launches}")
+            # plane_stats: a call a chunk on the dense batch, one over the
+            # sparse batch's planes
             want = {"forward_quant": 2, "encode_words": 1, "decode_words": 1,
-                    "inverse_dequant": 2}
+                    "inverse_dequant": 2,
+                    "plane_stats": 1 if codec.sparse else 2}
             if name == "batch_sparse_q50":
                 want.update(compact=1, expand=1)
             check(only_launches(launches, want), f"{name}: expected {want}, got {launches}")
@@ -2078,7 +2220,7 @@ def main() -> int:
                      "K8 compact_lanes": ("compact_lanes",),
                      "K9 decode_nway": ("decode_nway",),
                      "lifts": ("spatial_tiles", "temporal_"),
-                     "copies": ("Memcpy",), "histograms": ("Histogram",)}
+                     "copies": ("Memcpy",), "plane_stats": ("plane_stats",)}
             split = {k: sum(ms for key, ms, _ in rows if any(n in key for n in v))
                      for k, v in parts.items()}
             split["other glue"] = busy_ms - sum(split.values())
@@ -2147,12 +2289,16 @@ def main() -> int:
         "encode_nway": ("rans_nway.cu", "alice_codec_tpu/ops/pallas/rans_kernel.py:125"),
         "decode_nway": ("rans_nway.cu",
                         "alice_codec_tpu/ops/pallas/rans_decode_kernel.py:132"),
+        # port-only: the JAX package counts its histograms in jnp
+        # (alice_codec_tpu/ops/quant.py:122); its launches are read apart
+        # from launch_counts() (see launch_counts here)
+        "plane_stats": ("hist.cu", None),
     }
     #: the path whose launches each kernel's entry reports
     main_path = {"compact": "sparse_q50", "expand": "sparse_q50",
                  "forward_3d": "deep_q100", "inverse_3d": "deep_q100",
                  "encode_nway": "alc2_q90", "encode_pack_nway": "alc2_q90",
-                 "decode_nway": "alc2_q90"}
+                 "decode_nway": "alc2_q90", "plane_stats": "sparse_q90"}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = stats[name]
@@ -2171,13 +2317,13 @@ def main() -> int:
                if name in ("forward_quant", "inverse_dequant") else {}),
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
+            "bound_by": "bytes", "library_ms": s.get("library_ms"),
         })
         for extra in ("kernel_ms", "ms_in_place", "plain_streams", "plain_pack_ms",
                       "passes_ms", "rgb",
                       "ms_by_wavelet",
                       "kernel_split", "planes_north_star", "ms_north_star",
-                      "bound_ms_north_star"):
+                      "bound_ms_north_star", "cases"):
             if extra in s:
                 kernels[-1][extra] = s[extra]
     print("kernels: " + json.dumps(

@@ -186,7 +186,7 @@ def test_reference_encode_stage_exact_on_extreme_content(kind):
     JAX's."""
     rgb = _extreme(kind)
     for step in (1, 8):
-        sym, hist = pipeline.encode_device(
+        sym, hist, _ = pipeline.encode_device(
             torch.from_numpy(rgb), step, step, wavelet_type=WaveletType.CDF97,
             padded=(W, H, T))
         jsym, jhist = jpipeline.encode_device(

@@ -89,10 +89,13 @@ def main() -> int:
 
     # the dense path's segments, one launch each way
     step = quality_to_step(90)
-    symbols, hists = pipeline.encode_device(
+    # the encode stage returns (symbols, histograms), and with the
+    # plane-statistics kernel the maxima third, which the coverage floor
+    # then takes in place of the planes
+    symbols, hists, *maxima = pipeline.encode_device(
         rgb, step, step, wavelet_type=wt, padded=padded,
         hist_stride=alc3.HIST_STRIDE, interleaved=True)
-    hists = alc3._covered_hist(hists, symbols)
+    hists = alc3._covered_hist(hists, maxima[0] if maxima else symbols)
     n_seg, m = alc3._segment_geometry(p, s_seg)
     freqs, cums = freq_table_device(alc3._table_hists(hists, p, s_seg=s_seg))
     segs = torch.nn.functional.pad(symbols, (0, m - p)).reshape(3 * n_seg, s_seg, 128)
