@@ -44,7 +44,9 @@ dense capacity marks a dense plane (its bitmap segments ship elided).
 ``encode_batch`` / ``decode_batch`` code B chunks of one geometry with
 one word-rANS launch each way (and one compact / expand launch where
 planes are sparse) over the whole batch, and K1 / K4 once a chunk; with a
-chunk mesh (``parallel.mesh``) each device codes its shard.
+chunk mesh (``parallel.mesh``) each device codes its shard.  ``encode`` /
+``decode`` of a fixed-step chunk (not rdo, not deep) are that path at
+B = 1.
 """
 
 from __future__ import annotations
@@ -236,9 +238,10 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
     coded.  ``chunk_planes``: wire planes a chunk (default ``wire_nc``: one
     chunk).
 
-    Returns ``(streams, counts, hists)``: hists in the full wire layout
-    (2·wire_nc, 256) — bitmap rows, then value rows, with the rows of an
-    elided plane synthesized; streams and counts of the coded planes only,
+    Returns ``(streams, counts, hists)``: hists (2·wire_nc, 256) chunk by
+    chunk, each in the wire layout — its bitmap rows, then its value rows,
+    with the rows of an elided plane synthesized — so each chunk's hists
+    are one slice; streams and counts of the coded planes only,
     chunk by chunk: a chunk's bitmap segments first (elided, count 0, for
     dense planes), then each of its coded planes' value segments — so each
     chunk's segments are one slice."""
@@ -287,16 +290,18 @@ def _encode_chunk_sparse(symbols, trows, *, pp: int, s_seg: int, krs,
     bm_hists = dict(zip(bm_parts, stats))
     v_hists = dict(zip(coded, stats))
     pos = {w: i for i, w in enumerate(wire_active)}
-    rows = [bm_hists.get(pos.get(w), zero_bm_hist) for w in range(wire_nc)]
-    rows += [v_hists.get(pos.get(w), zero_v_hist) for w in range(wire_nc)]
-    hists = torch.stack(rows)
+    hists = torch.stack([h for j in range(0, wire_nc, cp) for h in (
+        [bm_hists.get(pos.get(w), zero_bm_hist) for w in range(j, j + cp)]
+        + [v_hists.get(pos.get(w), zero_v_hist) for w in range(j, j + cp)])])
     # one table per segment group: each coded plane's bitmap (a dense
-    # plane's segments are elided and never read theirs), then its values
+    # plane's segments are elided and never read theirs), then its values;
+    # wire plane w's bitmap row is w + (w // cp)·cp, its value row cp on
+    bm_rows = [[wire_active[c] + wire_active[c] // cp * cp for c in g]
+               for g in groups]
     freqs, cums = freq_table_device(torch.cat([
-        t for g in groups for t in (
-            _table_hists(hists[[wire_active[c] for c in g]], pp // 8,
-                         s_seg=s_seg, v_seg=v_b),
-            hists[[wire_nc + wire_active[c] for c in g]])]))
+        t for rows in bm_rows for t in (
+            _table_hists(hists[rows], pp // 8, s_seg=s_seg, v_seg=v_b),
+            hists[[r + cp for r in rows]])]))
     streams, counts = encode_words(
         buf.view(-1, s_seg, NG), freqs, cums,
         planes=[n for g in groups
@@ -310,10 +315,11 @@ def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
     """Sparse decode front half → (nc, p) uint8 symbols (nc: 3 channels,
     or 6 byte planes when deep, or the 3·B channels of B chunks whose
     segments follow one another in ``streams``, ``chunk_planes`` = 3 a
-    chunk).  ``hists``: (2·nc, 256), the bitmap rows, then the value
-    rows; ``kcaps``: per plane, its value capacity in symbols — 0 elides
-    the plane (exact zeros), the full dense capacity marks a dense plane
-    (its value symbols are the plane; its bitmap is never read).  One
+    chunk).  ``hists``: (2·nc, 256) chunk by chunk, each chunk's bitmap
+    rows, then its value rows; ``kcaps``: per plane, its value capacity
+    in symbols — 0 elides the plane (exact zeros), the full dense
+    capacity marks a dense plane (its value symbols are the plane; its
+    bitmap is never read).  One
     word-rANS decode launch covers every segment, one expand launch
     every sparse plane."""
     cp = nc if chunk_planes is None else chunk_planes
@@ -329,8 +335,9 @@ def _sparse_entropy_expand(streams, counts, hists, *, p: int, s_seg: int,
         coded = [c for c in range(j * cp, (j + 1) * cp) if kcaps[c] > 0]
         if not coded:
             continue
-        tables += [_table_hists(hists[coded], pp // 8, s_seg=s_seg, v_seg=v_b),
-                   hists[[nc + c for c in coded]]]
+        tables += [_table_hists(hists[[c + j * cp for c in coded]], pp // 8,
+                                s_seg=s_seg, v_seg=v_b),
+                   hists[[c + (j + 1) * cp for c in coded]]]
         planes += [nb] * len(coded) + [kcaps[c] // (s_seg * NG) for c in coded]
         voff = off + len(coded) * mb
         for i, c in enumerate(coded):
@@ -577,6 +584,7 @@ class Alc3Codec:
         # wire-visible, since they decide later chunks' capacities:
         # value capacity rows per (provided planes, wire planes, pp,
         # s_seg), and the channels last found nonzero per (pp, s_seg)
+        # for encode and (B, pp, s_seg) for encode_batch
         self._krs_cache: dict = {}
         self._active_cache: dict = {}
 
@@ -640,38 +648,6 @@ class Alc3Codec:
             kcaps[w] = krs[i] * NG
         return streams, counts, hists, tuple(kcaps)
 
-    def _encode_sparse(self, rgb, padded):
-        """Fixed-step sparse encode of one chunk on the codec's device.
-
-        Phase 1 transforms only the channels the last chunk of this
-        geometry needed (all three at first); one host read of the value
-        rows and colour flags then picks the capacities.  Where a channel
-        assumed zero is not, phase 1 runs again over the needed channels,
-        and the capacities the JAX package's discarded dispatch stores for
-        the first set are stored too (a channel's symbols do not depend on
-        which others are active, so its first rows give them)."""
-        p = int(np.prod(padded))
-        pp = _sparse_pp(p)
-        akey = (pp, self.s_seg)
-        active = self._active_cache.get(akey, (0, 1, 2))
-
-        def phase1(chans):
-            sym, trows, flags = encode_sparse_phase1(
-                rgb, self.step, self.step, wavelet_type=self.wavelet_type,
-                padded=padded, pp=pp, levels=self.levels, active=chans)
-            host = torch.cat([trows.sum(-1, dtype=torch.int64),
-                              flags.to(torch.int64)]).tolist()
-            return sym, trows, host[: len(chans)], host[len(chans):]
-
-        symbols, trows, rows, flags = phase1(active)
-        needed = tuple(sorted({0} | {c for c in range(3) if flags[c]}))
-        if not set(needed) <= set(active):
-            self._settle_krs(rows, active, pp)
-            active = needed
-            symbols, trows, rows, _ = phase1(active)
-        self._active_cache[akey] = needed
-        return self._sparse_phase2(symbols, trows, pp, rows, active)
-
     def _encode_sparse_planes(self, symbols, trows, pp: int):
         """Sparse phase 2 of a deep (6 byte planes) or rdo chunk: every
         plane provided, no zero-channel cache."""
@@ -696,16 +672,17 @@ class Alc3Codec:
 
     def encode(self, rgb) -> DeviceChunk:
         """Encode one (T, H, W, 3) uint8 chunk; accepts NumPy (uploaded
-        once) or a tensor (moved to the codec's device if elsewhere)."""
-        if isinstance(rgb, torch.Tensor):
-            rgb = rgb.to(device=self.device, dtype=torch.uint8)
-        else:
-            arr = np.asarray(rgb, np.uint8)
-            if not arr.flags.writeable:  # torch wraps only writable arrays
-                arr = arr.copy()
-            rgb = torch.as_tensor(arr, device=self.device)
+        once) or a tensor (moved to the codec's device if elsewhere).  A
+        fixed-step chunk is a batch of one (:meth:`encode_batch`'s path,
+        under the single-chunk active-set key); rdo and deep chunks code
+        here."""
+        rgb = as_uint8_tensor(rgb, self.device)
         if rgb.ndim != 4 or rgb.shape[-1] != 3:
             raise InvalidBufferSize(4, rgb.ndim)
+        if not (self.rdo or self.deep):
+            if self.sparse:
+                return self._encode_batch_sparse(rgb[None], ())[0]
+            return self._encode_batch_dense(rgb[None])[0]
         t, h, w, _ = rgb.shape
         padded = padded_dims_levels(w, h, t, self.levels)
         p = int(np.prod(padded))
@@ -720,7 +697,7 @@ class Alc3Codec:
             dzs8 = torch.as_tensor(dzs, device=self.device)
         stage = dict(wavelet_type=self.wavelet_type, padded=padded,
                      levels=self.levels)
-        if self.sparse and (self.rdo or self.deep):
+        if self.sparse:
             if self.rdo:
                 planes, trows = _bands_sparse_phase15(coeffs, steps8, dzs8,
                                                       padded=padded, pp=pp)
@@ -730,8 +707,6 @@ class Alc3Codec:
                     rgb, self.step, self.step, pp=pp, **stage)
             streams, counts, hists, kcaps = self._encode_sparse_planes(
                 planes, trows, pp)
-        elif self.sparse:
-            streams, counts, hists, kcaps = self._encode_sparse(rgb, padded)
         else:
             if self.rdo:
                 planes, hists, maxima = encode_bands_device(
@@ -739,14 +714,9 @@ class Alc3Codec:
                     hist_stride=HIST_STRIDE)
                 del coeffs
             else:
-                if self.deep:
-                    planes, hists, maxima = encode_deep_device(
-                        rgb, self.step, self.step, hist_stride=HIST_STRIDE,
-                        **stage)
-                else:
-                    planes, hists, maxima = encode_device(
-                        rgb, self.step, self.step, hist_stride=HIST_STRIDE,
-                        interleaved=True, **stage)
+                planes, hists, maxima = encode_deep_device(
+                    rgb, self.step, self.step, hist_stride=HIST_STRIDE,
+                    **stage)
             v_seg = _pick_v_seg(_segment_geometry(p, self.s_seg)[0])
             streams, counts, hists = _entropy_encode(
                 planes, hists, maxima, s_seg=self.s_seg, v_seg=v_seg)
@@ -758,7 +728,14 @@ class Alc3Codec:
     def decode(self, chunk: DeviceChunk, *, exact: bool = False,
                as_numpy: bool = False):
         """Decode back to (T, H, W, 3) uint8 — a tensor on the chunk's
-        device, or a numpy array with ``as_numpy``."""
+        device, or a numpy array with ``as_numpy``.  A fixed-step chunk
+        decodes as a batch of one (:meth:`decode_batch`'s path); rdo and
+        deep chunks decode here."""
+        if chunk.band_steps is None and not chunk.deep:
+            fixed = (self._decode_batch_sparse if chunk.sparse
+                     else self._decode_batch_dense)
+            rgb = fixed([chunk], exact)[0]
+            return rgb.cpu().numpy() if as_numpy else rgb
         w, h, t = chunk.width, chunk.height, chunk.frames
         dev = chunk.streams.device
         padded = padded_dims_levels(w, h, t, chunk.levels)
@@ -775,21 +752,15 @@ class Alc3Codec:
                 s_seg=chunk.s_seg, v_seg=_pick_v_seg(chunk.n_segments))
         stage = dict(wavelet_type=chunk.wavelet_type, dims=(w, h, t),
                      padded=padded, exact=exact)
-        steps = torch.full((3,), chunk.quant_step, dtype=torch.int32,
-                           device=dev)
         if chunk.band_steps is not None:
             steps8 = torch.as_tensor(np.asarray(chunk.band_steps, np.int32),
                                      device=dev)
             rgb = decode_bands_device(planes, steps8, **stage)
-        elif chunk.deep:
+        else:
+            steps = torch.full((3,), chunk.quant_step, dtype=torch.int32,
+                               device=dev)
             rgb = decode_deep_device(planes, steps, levels=chunk.levels,
                                      **stage)
-        else:
-            # an elided sparse plane (kcap 0) carries no nonzero symbol
-            active = (tuple(c for c in range(3) if chunk.kcaps[c] > 0)
-                      if chunk.sparse else None)
-            rgb = decode_device(planes, steps, levels=chunk.levels,
-                                active=active, interleaved=True, **stage)
         return rgb.cpu().numpy() if as_numpy else rgb
 
     # ── batches and chunk meshes ────────────────────────────────
@@ -801,8 +772,8 @@ class Alc3Codec:
 
         Dense and sparse fixed-step batches run K1 once a chunk, then one
         word-rANS encode launch (and, where planes are sparse, one compact
-        launch) over the whole batch; the containers equal per-chunk
-        :meth:`encode`'s (sparse: with the batch's own capacity caches).
+        launch) over the whole batch; :meth:`encode` is this path at B = 1
+        (sparse: the batch keeps its own active-set cache).
         With ``mesh`` (:func:`~.parallel.mesh.chunk_mesh`) each device
         codes its shard and its chunks stay there: dense streams equal the
         unsharded path's; sparse takes the mesh's capacity rule (one bucket
@@ -821,31 +792,37 @@ class Alc3Codec:
             return out
         x = _batch_tensor(rgb_batch, self.device)
         if self.sparse:
-            return self._encode_batch_sparse(x)
+            return self._encode_batch_sparse(x, (x.shape[0],))
         return self._encode_batch_dense(x)
 
     def _encode_batch_dense(self, x) -> list[DeviceChunk]:
         """Dense batch on ``x``'s device: K1 once a chunk into one buffer
-        of the B·3 planes, then one encode launch over all of them; chunk
-        i owns segment rows [i·3·n_seg, (i+1)·3·n_seg)."""
+        of the B·3 planes (B = 1: K1's planes themselves), then one encode
+        launch over all of them; chunk i owns segment rows
+        [i·3·n_seg, (i+1)·3·n_seg)."""
         b, t, h, w, _ = x.shape
         padded = padded_dims_levels(w, h, t, self.levels)
         p = int(np.prod(padded))
         n_seg, m = _segment_geometry(p, self.s_seg)
-        buf = torch.empty((3 * b, m), dtype=torch.uint8, device=x.device)
+        buf = (torch.empty((3 * b, m), dtype=torch.uint8, device=x.device)
+               if b > 1 else None)
         hists, maxima = [], []
         for i in range(b):
             planes, hist, mx = encode_device(
                 x[i], self.step, self.step, wavelet_type=self.wavelet_type,
                 padded=padded, levels=self.levels, hist_stride=HIST_STRIDE,
                 interleaved=True)
-            buf[3 * i : 3 * i + 3, :p].copy_(planes)
+            if buf is None:
+                buf = planes
+            else:
+                buf[3 * i : 3 * i + 3, :p].copy_(planes)
             hists.append(hist)
             maxima.append(mx)
             del planes
-        buf[:, p:].zero_()
+        if b > 1:
+            buf[:, p:].zero_()
         streams, counts, hists = _entropy_encode(
-            buf, torch.cat(hists), torch.cat(maxima), s_seg=self.s_seg,
+            buf, _join(hists), _join(maxima), s_seg=self.s_seg,
             v_seg=_pick_v_seg(n_seg), p=p)
         rows = 3 * n_seg
         return [DeviceChunk(w, h, t, self.wavelet_type, self.step, self.s_seg,
@@ -858,35 +835,41 @@ class Alc3Codec:
         """Sparse phase 1 of each chunk of ``x`` over the ``active``
         channels: ``(planes, tile rows, value-row and flag tensors)``, the
         planes and tile rows one per (chunk, active channel), left where
-        each chunk's phase 1 put them."""
+        each chunk's phase 1 put them; the B·na value rows and B·3 flags,
+        chunk by chunk (B = 1: phase 1's own, with no copy)."""
         outs = [encode_sparse_phase1(
             x[i], self.step, self.step, wavelet_type=self.wavelet_type,
             padded=padded, pp=pp, levels=self.levels, active=active)
             for i in range(x.shape[0])]
         return ([pl for o in outs for pl in o[0]],
                 [r for o in outs for r in o[1]],
-                torch.stack([o[1].sum(-1, dtype=torch.int64) for o in outs]),
-                torch.stack([o[2] for o in outs]))
+                _join([o[1].sum(-1, dtype=torch.int64) for o in outs]),
+                _join([o[2] for o in outs]))
 
-    def _encode_batch_sparse(self, x) -> list[DeviceChunk]:
-        """Sparse batch: phase 1 a chunk over the batch's union active set
-        (cached per (B, pp, s_seg), apart from the single-chunk key), one
-        host read of the value rows and colour flags, then one compact and
-        one encode launch over the B·na planes.  A wrong guess runs phase
-        1 again over the needed channels, and the capacities the JAX
-        package's discarded dispatch caches for the first set are cached
-        too (as in :meth:`_encode_sparse`)."""
+    def _encode_batch_sparse(self, x, akey: tuple) -> list[DeviceChunk]:
+        """Fixed-step sparse encode of a batch (:meth:`encode`: B = 1).
+
+        Phase 1 transforms each chunk over the batch's union active set,
+        the channels the last batch of this geometry needed (all three at
+        first), cached per ``akey + (pp, s_seg)``: ``akey`` is ``()`` for
+        :meth:`encode` and ``(B,)`` for :meth:`encode_batch`, as the JAX
+        package keys them.  One host read of the value rows and colour
+        flags then picks the capacities, and one compact and one encode
+        launch code the B·na planes.  Where a channel assumed zero is not,
+        phase 1 runs again over the needed channels, and the capacities
+        the JAX package's discarded dispatch caches for the first set are
+        cached too (a channel's symbols do not depend on which others are
+        active, so its first rows give them)."""
         b, t, h, w, _ = x.shape
         padded = padded_dims_levels(w, h, t, self.levels)
         pp = _sparse_pp(int(np.prod(padded)))
-        akey = (b, pp, self.s_seg)
+        akey = akey + (pp, self.s_seg)
         active = self._active_cache.get(akey, (0, 1, 2))
 
         def phase1(chans):
             planes, trows, rows, flags = self._phase1_chunks(x, padded, pp,
                                                              chans)
-            host = torch.cat([rows.reshape(-1),
-                              flags.reshape(-1).to(torch.int64)]).tolist()
+            host = torch.cat([rows, flags.to(torch.int64)]).tolist()
             wire = tuple(3 * i + c for i in range(b) for c in chans)
             return planes, trows, host[: len(wire)], host[len(wire):], wire
 
@@ -907,8 +890,7 @@ class Alc3Codec:
                       ) -> list[DeviceChunk]:
         """B self-contained chunks from one batch's phase 2, whose
         segments run chunk by chunk (its coded planes' bitmap segments,
-        then their value segments) and whose hists are the (2·3B, 256)
-        wire layout."""
+        then their value segments), and so do the rows of its hists."""
         b = len(kcaps) // 3
         nb, _ = _segment_geometry(pp // 8, self.s_seg)
         seg = self.s_seg * NG
@@ -919,8 +901,7 @@ class Alc3Codec:
             chunks.append(DeviceChunk(
                 *dims, self.wavelet_type, self.step, self.s_seg,
                 streams[off : off + n], counts[off : off + n],
-                torch.cat([hists[3 * i : 3 * i + 3],
-                           hists[3 * b + 3 * i : 3 * b + 3 * i + 3]]),
+                hists[6 * i : 6 * i + 6],
                 levels=self.levels, sparse=True, kcaps=kc))
             off += n
         return chunks
@@ -953,7 +934,7 @@ class Alc3Codec:
             nv = max(_bucket_nv(r, self.s_seg, max_nv), DEFAULT_V_SEG)
             return max_nv if nv >= max_nv else nv
 
-        nv3 = tuple(ch_bucket(max(r[c] for r in rows)) for c in range(3))
+        nv3 = tuple(ch_bucket(max(rows[c::3])) for c in range(3))
         krs3 = tuple(nv * self.s_seg for nv in nv3)
         dense3 = tuple(c for c in range(3) if nv3[c] == max_nv)
         nb, _ = _segment_geometry(pp // 8, self.s_seg)
@@ -1016,7 +997,7 @@ class Alc3Codec:
         padded = padded_dims_levels(w, h, t, c0.levels)
         planes = _entropy_decode(
             _join([c.streams for c in chunks]), _join([c.counts for c in chunks]),
-            torch.cat([c.hists for c in chunks]), padded=padded,
+            _join([c.hists for c in chunks]), padded=padded,
             s_seg=c0.s_seg, v_seg=_pick_v_seg(c0.n_segments))
         return self._inverse_chunks(chunks, planes, padded, exact, None)
 
@@ -1033,8 +1014,7 @@ class Alc3Codec:
         nb, _ = _segment_geometry(_sparse_pp(p) // 8, c0.s_seg)
         planes = _sparse_entropy_expand(
             _join([c.streams for c in chunks]), _join([c.counts for c in chunks]),
-            torch.cat([c.hists[:3] for c in chunks]
-                      + [c.hists[3:] for c in chunks]),
+            _join([c.hists for c in chunks]),
             p=p, s_seg=c0.s_seg, kcaps=tuple(k for c in chunks for k in c.kcaps),
             v_b=_pick_v_seg(nb), nc=3 * b, chunk_planes=3)
         acts = {tuple(i for i in range(3) if c.kcaps[i] > 0) for c in chunks}
@@ -1045,21 +1025,22 @@ class Alc3Codec:
     def _inverse_chunks(chunks, planes, padded, exact: bool, active):
         """K4 (and the inverse colour) a chunk, from the batch's (3B, P)
         decoded planes, into one (B, T, H, W, 3) tensor (on the fused
-        colour route K4 writes each chunk's frames there itself)."""
+        colour route K4 writes each chunk's frames there itself; B = 1:
+        the chunk's frames, with no copy)."""
         c0 = chunks[0]
         dev = planes.device
         w, h, t = c0.width, c0.height, c0.frames
-        out = torch.empty((len(chunks), t, h, w, 3), dtype=torch.uint8,
-                          device=dev)
+        out = (torch.empty((len(chunks), t, h, w, 3), dtype=torch.uint8,
+                           device=dev) if len(chunks) > 1 else None)
         for i, c in enumerate(chunks):
             steps = torch.full((3,), c.quant_step, dtype=torch.int32,
                                device=dev)
-            decode_device(
+            rgb = decode_device(
                 planes[3 * i : 3 * i + 3], steps,
                 wavelet_type=c0.wavelet_type, dims=(w, h, t), padded=padded,
                 exact=exact, levels=c0.levels, active=active, interleaved=True,
-                out=out[i])
-        return out
+                out=None if out is None else out[i])
+        return rgb[None] if out is None else out
 
     # ── container serialization (host interchange) ──────────────
 

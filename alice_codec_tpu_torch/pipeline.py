@@ -32,10 +32,13 @@ The ALC3 stages (interleaved layout):
   ``inverse_dequant_rgb``); elsewhere the colour and pad run as torch
   ops (:func:`_color_pad`, ``ops/color.py``), which stay the CPU spec;
 * the modes without the fused kernels (multi-level, AnalyticalRDO, deep
-  16-bit symbols): the transform is colour + pad (int32) → the plain
-  level-0 3D lift kernel → the subgrid lifts of levels ≥ 1 (torch), then
-  quantize per channel or per band; the inverse mirrors it and ends in
-  the int32 → int16 truncating cast;
+  16-bit symbols), and the fixed-step chunks the JAX package's fused
+  kernels refuse (:func:`_tpu_fused`): the transform is colour + pad
+  (int32) → the plain level-0 3D lift kernel → the subgrid lifts of
+  levels ≥ 1 (torch), then quantize per channel or per band; the inverse
+  mirrors it and ends in the int32 → int16 truncating cast.
+  :func:`_route` names a fixed-step chunk's route (``"rgb"``,
+  ``"int16"`` or ``"int32"``) for every stage;
 * sparse phase 1: the encode stage over the channels that carry nonzero
   colour only, with the value rows each needs (the zero-channel elision
   of the JAX package's ``encode_sparse_phase1``), and its deep form over
@@ -156,6 +159,18 @@ def _tpu_fused(padded) -> bool:
             and _pick_tile(w, max(1, _TILE_BYTES // (h * 4))) >= 128)
 
 
+def _route(dims, padded, levels: int) -> str:
+    """ALC3's route for a (w, h, t) chunk padded to ``padded``, lifted
+    ``levels`` deep: ``"rgb"`` (the fused kernels take the colour,
+    :func:`_rgb_route`), ``"int16"`` (the fused kernels after
+    :func:`_color_pad`) or ``"int32"`` (the JAX package's unfused branch:
+    ``levels`` > 1 or :func:`_tpu_fused` false).  Wire-visible: on
+    ``"int32"`` sparse phase 1 reports every channel as nonzero."""
+    if levels > 1 or not _tpu_fused(padded):
+        return "int32"
+    return "rgb" if _rgb_route(dims, padded) else "int16"
+
+
 def _transform(rgb: torch.Tensor, wavelet_type, padded, levels: int = 1
                ) -> torch.Tensor:
     """color → edge-pad → forward 3D wavelet: uint8 (T, H, W, 3) → int32
@@ -192,15 +207,15 @@ _hist_sample = sampled
 def _symbols(rgb: torch.Tensor, step, dead_zone, *, wavelet_type, padded,
              levels: int) -> torch.Tensor:
     """Transform → quantize → zigzag: uint8 (T, H, W, 3) → uint8 symbols
-    (3, P).  Where the JAX package runs its fused kernels (one level,
-    :func:`_tpu_fused`): the fused lift + quantize kernel; elsewhere
-    :func:`_transform`, then quantize and zigzag."""
+    (3, P).  On the fused routes (:func:`_route`) the fused lift +
+    quantize kernel; on ``"int32"`` :func:`_transform`, then quantize and
+    zigzag."""
     pw, ph, pf = padded
-    if levels == 1 and _tpu_fused(padded):
-        sym = _lift_quant(rgb, wavelet_type, step, dead_zone, padded)
-    else:
+    if _route(_dims(rgb), padded, levels) == "int32":
         coeffs = _transform(rgb, wavelet_type, padded, levels)
         sym = quant.to_symbols(quant.quantize(coeffs, step, dead_zone))
+    else:
+        sym = _lift_quant(rgb, wavelet_type, step, dead_zone, padded)
     return sym.reshape(3, pf * ph * pw)
 
 
@@ -317,39 +332,40 @@ def decode_device(symbols: torch.Tensor, step: torch.Tensor, *,
     (int32 throughout, then the truncating cast) — the JAX package's
     decode of the `.alc` and ALC2 wires.
 
-    ``interleaved=True`` (ALC3): where the JAX package runs its fused
-    kernels (one level, :func:`_tpu_fused`): the fused dequantize +
-    inverse lift kernel, which stores int16 between its passes;
-    elsewhere dequantize and :func:`_inverse_rgb` (int32 throughout,
-    then the truncating cast) — the JAX package's unfused branch, which
-    differs from the fused one where an intermediate leaves int16.
+    ``interleaved=True`` (ALC3), by :func:`_route`: on the fused routes
+    the fused dequantize + inverse lift kernel, which stores int16
+    between its passes (on ``"rgb"`` it writes the RGB frames itself);
+    on ``"int32"`` dequantize and :func:`_inverse_rgb` (int32
+    throughout, then the truncating cast) — the JAX package's unfused
+    branch, which differs from the fused one where an intermediate
+    leaves int16.
 
-    ``active`` (fused only): the channels that may carry nonzero
+    ``active`` (fused routes only): the channels that may carry nonzero
     symbols.  An all-zero channel inverse-lifts to exact zeros, so only
     the active ones go through the kernel and the rest are zeros
-    (bit-exact).  Where :func:`_rgb_route`, the kernel writes the RGB
-    frames itself.
+    (bit-exact).
 
     ``out``: a (T, H, W, 3) uint8 tensor to write the frames into
     (returned); the fused route's kernel writes there directly."""
     w, h, t = dims
     pw, ph, pf = padded
+    route = _route(dims, padded, levels) if interleaved else None
+    act = (0, 1, 2) if active is None else tuple(sorted(active))
+    sym4 = symbols.reshape(3, pf, ph, pw)
     if not interleaved:
         _check_reference_levels(levels)
-        sym = wavelet.interleave_3d(symbols.reshape(3, pf, ph, pw))
+        sym = wavelet.interleave_3d(sym4)
         q = quant.from_symbols(sym)
         rgb = _inverse_rgb(quant.dequantize(q, step.reshape(3, 1, 1, 1)),
                            wavelet_type, dims, 1, exact)
-    elif levels > 1 or not _tpu_fused(padded):
-        q = quant.from_symbols(symbols).reshape(3, pf, ph, pw)
+    elif route == "int32":
+        q = quant.from_symbols(sym4)
         rgb = _inverse_rgb(quant.dequantize(q, step.reshape(3, 1, 1, 1)),
                            wavelet_type, dims, levels, exact)
+    elif route == "rgb":
+        return inverse_dequant_rgb(sym4, wavelet_type, step, exact=exact,
+                                   active=act, out=out)
     else:
-        act = (0, 1, 2) if active is None else tuple(sorted(active))
-        sym4 = symbols.reshape(3, pf, ph, pw)
-        if _rgb_route(dims, padded):
-            return inverse_dequant_rgb(sym4, wavelet_type, step, exact=exact,
-                                       active=act, out=out)
         if act == (0, 1, 2):
             volume = inverse_dequant(sym4, wavelet_type, step, exact=exact)
             chans = [volume[c, :t, :h, :w] for c in range(3)]
@@ -377,18 +393,19 @@ def encode_sparse_phase1(rgb: torch.Tensor, step: int, dead_zone: int, *,
     (:func:`~.ops.kernels.sparse.tile_rows`), flags (3,) bool — which
     colour planes are nonzero, regardless of ``active``)``.
 
-    Where the JAX package does not run its fused kernels (``levels`` > 1,
-    or :func:`_tpu_fused` false) it takes its unfused branch, which
-    reports every channel as nonzero; so does this one."""
+    On the ``"int32"`` route (:func:`_route`) the JAX package takes its
+    unfused branch, which reports every channel as nonzero; so does this
+    one."""
     pw, ph, pf = padded
     active = tuple(sorted(active))
-    if levels > 1 or not _tpu_fused(padded):
+    route = _route(_dims(rgb), padded, levels)
+    if route == "int32":
         flags = torch.ones(3, dtype=torch.bool, device=rgb.device)
         symbols = _symbols(rgb, step, dead_zone, wavelet_type=wavelet_type,
                            padded=padded, levels=levels)
         if active != (0, 1, 2):
             symbols = symbols[torch.tensor(active, device=rgb.device)]
-    elif _rgb_route(_dims(rgb), padded):
+    elif route == "rgb":
         symbols, flags = forward_quant_rgb(rgb, wavelet_type, step, dead_zone,
                                            active=active)
         symbols = symbols.reshape(len(active), pf * ph * pw)

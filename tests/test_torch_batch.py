@@ -20,7 +20,7 @@ import torch
 
 import torch_batch_goldens as tg
 from alice_codec_tpu_torch import Alc3Codec
-from alice_codec_tpu_torch.alc3 import _join
+from alice_codec_tpu_torch.alc3 import _join, _sparse_pp
 from alice_codec_tpu_torch.ops.kernels import sparse as sk
 from alice_codec_tpu_torch.ops.kernels.rans3 import NG
 from chip_smoke import golden_input
@@ -121,6 +121,98 @@ def test_join_reuses_the_chunks_of_one_batch():
     assert joined.data_ptr() == buf.data_ptr() and torch.equal(joined, buf)
     apart = _join([buf[:2], buf[3:]])
     assert torch.equal(apart, torch.cat([buf[:2], buf[3:]]))
+
+
+# ── a chunk is a batch of one ───────────────────────────────────
+
+#: (sparse, quality, (T, H, W), levels): the int16 fused route, the RGB
+#: route (2x64x256), the int32 route (two levels) and padded odd dims
+ONE = [(False, 90, (8, 32, 64), 1), (False, 50, (8, 32, 64), 1),
+       (False, 90, (5, 31, 63), 1), (False, 90, (8, 32, 64), 2),
+       (True, 90, (8, 32, 64), 1), (True, 50, (8, 32, 64), 1),
+       (True, 50, (2, 64, 256), 1), (True, 50, (8, 32, 64), 2)]
+#: a grey chunk first, so a colour chunk after it re-runs phase 1
+KINDS = (("gray", 1), ("chunk", 2), ("chunk", 3), ("black", 0))
+
+
+@pytest.mark.parametrize("sparse,quality,shape,levels", ONE)
+def test_encode_is_encode_batch_of_one(sparse, quality, shape, levels):
+    """``encode`` of each chunk writes the bytes and kcaps that
+    ``encode_batch`` of it alone writes, through two codecs fed the same
+    sequence, and ``decode`` gives ``decode_batch``'s frames."""
+    kw = dict(s_seg=8, sparse=sparse, levels=levels, device="cpu")
+    one, batch = Alc3Codec(quality, **kw), Alc3Codec(quality, **kw)
+    for kind, seed in KINDS:
+        x = golden_input(kind, seed, shape)
+        a, (b,) = one.encode(x), batch.encode_batch(x[None])
+        assert Alc3Codec.to_bytes(a) == Alc3Codec.to_bytes(b)
+        assert a.kcaps == b.kcaps
+        assert torch.equal(one.decode(a), batch.decode_batch([b])[0])
+
+
+@pytest.mark.parametrize("kind,seed,needed", [("gray", 1, (0,)),
+                                              ("chunk", 2, (0, 1, 2))])
+def test_active_set_keys_of_a_chunk_and_a_batch_of_one(kind, seed, needed):
+    """The active-set cache is wire-visible, and keyed as the JAX package
+    keys it: ``(pp, s_seg)`` after ``encode``, ``(1, pp, s_seg)`` after
+    ``encode_batch`` of one chunk."""
+    x = golden_input(kind, seed, (8, 32, 64))
+    pp = _sparse_pp(8 * 32 * 64)
+    one = Alc3Codec(50, s_seg=8, sparse=True, device="cpu")
+    one.encode(x)
+    assert one._active_cache == {(pp, 8): needed}
+    batch = Alc3Codec(50, s_seg=8, sparse=True, device="cpu")
+    batch.encode_batch(x[None])
+    assert batch._active_cache == {(1, pp, 8): needed}
+    assert one._krs_cache == batch._krs_cache
+
+
+def _count_host_reads(monkeypatch):
+    """Count the calls of the tensor methods that read a device value to
+    the host: ``tolist`` / ``item`` / ``cpu``, and ``__bool__`` (the
+    frequency tables' drain loop reads through ``bool``)."""
+    counts = {}
+    for name in ("tolist", "item", "cpu", "__bool__"):
+        def counted(self, *a, _f=getattr(torch.Tensor, name), _n=name, **k):
+            counts[_n] = counts.get(_n, 0) + 1
+            return _f(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    return counts
+
+
+#: per roundtrip of KINDS: ((encode's tolist, its bool), decode's bool).
+#: A colour chunk after the grey one re-runs phase 1 (a second tolist)
+#: where the fused routes report colour flags; two levels report all
+#: three channels nonzero.
+RERUN = [((1, 2), 2), ((2, 2), 2), ((1, 2), 2), ((1, 1), 1)]
+NO_RERUN = [((1, 2), 2)] * 3 + [((1, 1), 1)]
+
+
+@pytest.mark.parametrize("sparse,quality,shape,levels,reads", [
+    (True, 90, (8, 32, 64), 1, RERUN), (True, 50, (8, 32, 64), 1, RERUN),
+    (True, 50, (2, 64, 256), 1, RERUN), (True, 90, (8, 32, 64), 2, NO_RERUN),
+    (False, 90, (8, 32, 64), 1, [((0, 1), 1)] * 4)])
+def test_host_reads_of_a_roundtrip(monkeypatch, sparse, quality, shape, levels,
+                                   reads):
+    """A chunk's encode and decode (the batch path at B = 1) read the
+    device only for the value rows and colour flags, once a sparse phase
+    1, and in the table drains; every count is pinned."""
+    codec = Alc3Codec(quality, s_seg=8, sparse=sparse, levels=levels,
+                      device="cpu")
+    got = []
+    for kind, seed in KINDS:
+        x = golden_input(kind, seed, shape)
+        counts = _count_host_reads(monkeypatch)
+        chunk = codec.encode(x)
+        enc = dict(counts)
+        counts.clear()
+        codec.decode(chunk)
+        monkeypatch.undo()
+        assert enc.get("item", 0) == enc.get("cpu", 0) == 0
+        assert set(counts) <= {"__bool__"}
+        got.append(((enc.get("tolist", 0), enc.get("__bool__", 0)),
+                    counts.get("__bool__", 0)))
+    assert got == reads
 
 
 # ── the live JAX codec (minutes on a CPU) ───────────────────────

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from alice_codec_tpu_torch import pipeline
-from alice_codec_tpu_torch.core import WaveletType, padded_dims
+from alice_codec_tpu_torch.core import (WaveletType, padded_dims,
+                                        padded_dims_levels)
 from alice_codec_tpu_torch.ops import color
 from alice_codec_tpu_torch.ops.kernels import launch_counts, lift
 
@@ -22,22 +23,43 @@ WAVELETS = list(WaveletType)
 ACTIVE = [(0,), (0, 1), (0, 2), (0, 1, 2)]
 
 
-@pytest.mark.parametrize("t,h,w,fused", [
-    (64, 1080, 1920, True),     # the north star's chunk
-    (16, 2160, 3840, True),     # 4K (a split frame)
-    (8, 256, 256, True),        # the sparse goldens' chunk
-    (2, 64, 256, True),         # the smallest fast frame
-    (63, 1080, 1920, False),    # T padded to 64
-    (64, 1079, 1920, False),    # H padded
-    (64, 1080, 1917, False),    # W padded
-    (64, 1080, 1916, False),    # ragged: W even, not a multiple of 8
-    (64, 62, 1920, False),      # fewer rows than a tile window
-    (64, 1080, 248, False),     # fewer columns than a tile window
-    (5, 31, 63, False),         # the dense golden's chunk
-    (1, 64, 256, False),        # one frame, padded to two
-])
+#: (T, H, W) and ALC3's lift route at one level
+ROUTES = [
+    (64, 1080, 1920, "rgb"),    # the north star's chunk
+    (16, 2160, 3840, "rgb"),    # 4K (a split frame)
+    (8, 256, 256, "rgb"),       # the sparse goldens' chunk
+    (2, 64, 256, "rgb"),        # the smallest fast frame
+    (63, 1080, 1920, "int16"),  # T padded to 64
+    (64, 1079, 1920, "int16"),  # H padded
+    (64, 1080, 1917, "int16"),  # W padded
+    (64, 1080, 1916, "int16"),  # ragged: W even, not a multiple of 8
+    (64, 62, 1920, "int32"),    # fewer rows than a tile window (and
+                                # than the JAX kernels' tiles)
+    (64, 1080, 248, "int16"),   # fewer columns than a tile window
+    (5, 31, 63, "int16"),       # the dense golden's chunk
+    (1, 64, 256, "int16"),      # one frame, padded to two
+]
+
+
+@pytest.mark.parametrize("t,h,w,fused", [(t, h, w, r == "rgb")
+                                         for t, h, w, r in ROUTES])
 def test_rgb_route_is_a_function_of_shape(t, h, w, fused):
     assert pipeline._rgb_route((w, h, t), padded_dims(w, h, t)) is fused
+
+
+@pytest.mark.parametrize("t,h,w,route", ROUTES)
+def test_route_decides_the_three_ways(monkeypatch, t, h, w, route):
+    """``_route`` is the one three-way choice of the ALC3 stages: the RGB
+    kernels, the int16 fused kernels, or the int32 unfused lift (the JAX
+    package's unfused branch, where ``_tpu_fused`` is false or more than
+    one level is lifted); it reads the predicates as module globals."""
+    dims = (w, h, t)
+    assert pipeline._route(dims, padded_dims(w, h, t), 1) == route
+    assert pipeline._route(dims, padded_dims_levels(w, h, t, 2), 2) == "int32"
+    assert (route == "int32") is not pipeline._tpu_fused(padded_dims(w, h, t))
+    _old_route(monkeypatch)
+    assert pipeline._route(dims, padded_dims(w, h, t), 1) == (
+        "int16" if route == "rgb" else route)
 
 
 def _rgb(t, h, w, seed, gray=False):

@@ -228,6 +228,38 @@ def test_codec_on_card_matches_golden_and_cpu(cuda):
     assert all(torch.equal(both[i], out) for i, (_, out) in enumerate(coded))
 
 
+@pytest.mark.parametrize("quality,sparse,coded", [
+    (90, False, 0), (90, True, 0),   # every plane dense
+    (50, True, 1)])                  # a sparse Co plane: K5 and K6
+def test_codec_launches_of_a_chunk_and_a_batch(cuda, quality, sparse, coded):
+    """A roundtrip of one 8x256x256 chunk of the RGB route through encode /
+    decode (the batch path at B = 1), and of two through encode_batch /
+    decode_batch, launch K1 and K4 once a chunk (RGB), K2 and K3 once,
+    K5 and K6 once where a plane is sparse, and the plane statistics once
+    (the dense batch once a chunk)."""
+    from chip_smoke import golden_input
+
+    from alice_codec_tpu_torch.ops.kernels import hist
+
+    xs = np.stack([golden_input("chunk", s, (8, 256, 256)) for s in (0, 3)])
+    codec = Alc3Codec(quality, "cdf53", sparse=sparse, s_seg=8)
+    k1, k4 = lift.forward_quant, lift.inverse_dequant
+    for b in (1, 2):
+        reset_launches()
+        stats = hist.plane_stats.launches
+        if b == 1:
+            codec.decode(codec.encode(xs[0]))
+        else:
+            codec.decode_batch(codec.encode_batch(xs))
+        torch.cuda.synchronize()
+        want = dict.fromkeys(launch_counts(), 0)
+        want.update(forward_quant=b, encode_words=1, decode_words=1,
+                    inverse_dequant=b, compact=coded, expand=coded)
+        assert launch_counts() == want
+        assert (k1.rgb_launches, k4.rgb_launches) == (b, b)
+        assert hist.plane_stats.launches - stats == (1 if sparse else b)
+
+
 def _rgb_inputs(rng, t, h, w):
     """Random bytes, 0/255 stripes (Co and Cg at ±255) and a grey chunk."""
     stripes = np.zeros((t, h, w, 3), np.uint8)
